@@ -1,0 +1,13 @@
+"""PyTorch + CUDA port of ``repro`` for one NVIDIA H100.
+
+The JAX package ``repro`` is the reference: this package keeps its module
+names, public function names and array layouts, so each function here can
+be held against its counterpart on the same numpy inputs.  It imports
+``torch`` and nothing of ``jax`` or ``repro``.
+
+Ported so far (slice 1): serving a dense decoder-only LM — configs,
+model layers and stack, the paged KV pool with int8 blocks, chunked
+prefill riding the mixed step, copy-on-write prefix caching, the serve
+engine and its command-line launcher.  The attention kernels on that
+path are CUDA C++ for ``sm_90a`` under ``csrc/``.
+"""

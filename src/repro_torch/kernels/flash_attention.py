@@ -1,0 +1,60 @@
+"""Blockwise flash attention forward: the CUDA kernel's wrapper and its
+launch count.  Counterpart of ``repro.kernels.flash_attention``.
+
+The kernel (``csrc/flash_attention.cu``) takes q ``(B, H, S, D)`` and
+k/v ``(B, KH, T, D)`` with any S and T >= S, causal or full, head dim 64
+or 128, float32 or bfloat16.  Unlike the TPU kernel it has no alignment
+requirement, so no shape falls back to another path.  Its plain version
+is :func:`repro_torch.kernels.ref.attention_ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+#: launches since the last reset; the wrapper adds one where it launches
+launches = {"flash_attention": 0}
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    fn = build.load("flash_attention").flash_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 4 + [_I] * 8 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"flash_attention: {msg}")
+
+
+def flash_attention_cuda(q, k, v, *, causal: bool = True):
+    """Launch the CUDA kernel on CUDA tensors; raises on anything it does
+    not take."""
+    B, H, S, D = q.shape
+    _, KH, T, _ = k.shape
+    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+             "q, k and v must be on the same CUDA device")
+    _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+             "q, k and v must be contiguous")
+    _require(q.dtype in _DTYPE and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (float32 or bfloat16)")
+    _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == D,
+             f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} disagree")
+    _require(D in (64, 128) and H % KH == 0 and T >= S,
+             f"head dim {D} (64 or 128), H % KH == 0, T >= S ({T}, {S})")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, H, KH, S, T, D, int(causal), _DTYPE[q.dtype], stream)
+    build.check(err, "flash_attention")
+    launches["flash_attention"] += 1
+    return out

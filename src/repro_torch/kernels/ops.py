@@ -1,0 +1,100 @@
+"""Kernel entry points with the op names and signatures of
+``repro.kernels.ops``.
+
+The implementation is chosen by the tensor's device alone: a CUDA tensor
+goes to the hand-written kernel (or the call raises), a CPU tensor goes
+to the plain PyTorch version.  Nothing falls back from one to the other.
+
+The mixed-step form of the paged op (5-d q, one kv_len per query token)
+is plain torch on every device, as its counterpart is XLA in the
+reference (:mod:`repro_torch.kernels.mha_stream`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import flash_attention as _flash
+from . import mha_stream
+from . import paged_decode_attention as _paged
+from . import ref
+
+_COUNTERS = (_flash.launches, _paged.launches)
+
+
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel since the last :func:`reset_launch_counts`."""
+    out: dict[str, int] = {}
+    for c in _COUNTERS:
+        out.update(c)
+    return out
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS:
+        for k in c:
+            c[k] = 0
+
+
+def _route(t: torch.Tensor, op: str) -> bool:
+    """True for CUDA (launch the kernel), False for CPU (plain version)."""
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{op}: no implementation for device {t.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q=None,
+                    block_k=None):
+    """q: (B, H, S, D); k/v: (B, KH, T, D) -> (B, H, S, D).  ``block_q`` /
+    ``block_k`` are accepted for signature parity; the CUDA kernel's
+    tiles are fixed."""
+    if _route(q, "flash_attention"):
+        return _flash.flash_attention_cuda(q, k, v, causal=causal)
+    return ref.attention_ref(q, k, v, causal=causal)
+
+
+def decode_attention(q, k, v, kv_len, *, block_k=None):
+    """Dense-cache decode.  The mixed-step form (q (B, KH, G, T, D),
+    kv_len (B, T)) streams in plain torch; the single-token form's kernel
+    arrives with slice 2 (ROADMAP.md)."""
+    if q.ndim == 5:
+        return mha_stream.mixed_decode_attention(q, k, v, kv_len,
+                                                 block_k=block_k)
+    raise NotImplementedError(
+        "single-token decode over a dense cache (decode_attention) is "
+        "ported in slice 2; serve with the paged cache (kv_block_size > 0)")
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
+                           k_scale=None, v_scale=None):
+    """q: (B, KH, G, D); k_pool/v_pool: (NB, block_size, KH, D);
+    block_tables: (B, pages) int32 -> (B, KH, G, D).  kv_len: scalar or
+    (B,).  With ``k_scale``/``v_scale`` ((NB, block_size, KH) f32) the
+    pools are int8.  A 5-d q (B, KH, G, T, D) with kv_len (B, T) is the
+    mixed-step form."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(
+            "paged_decode_attention: k_scale and v_scale must be passed "
+            "together (one without the other would run fp attention on "
+            "int8 payload)")
+    if k_scale is not None:
+        want = tuple(k_pool.shape[:3])
+        got = (tuple(k_scale.shape), tuple(v_scale.shape))
+        if got != (want, want):
+            raise ValueError(
+                f"paged_decode_attention: scale shapes {got} do not match "
+                f"the pool's (NB, block_size, KH) = {want}")
+    if q.ndim == 5:
+        return mha_stream.paged_mixed_attention(
+            q, k_pool, v_pool, block_tables, kv_len, k_scale=k_scale,
+            v_scale=v_scale)
+    if _route(q, "paged_decode_attention"):
+        kv_len = ref.normalize_kv_len(kv_len, q.shape[0], q.device)
+        return _paged.paged_decode_attention_cuda(
+            q, k_pool, v_pool, block_tables.to(torch.int32), kv_len,
+            k_scale=k_scale, v_scale=v_scale)
+    return ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                          kv_len, k_scale=k_scale,
+                                          v_scale=v_scale)

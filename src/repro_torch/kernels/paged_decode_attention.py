@@ -1,0 +1,92 @@
+"""Paged flash-decode attention: the CUDA kernel's wrapper and its launch
+counts.  Counterpart of ``repro.kernels.paged_decode_attention``.
+
+The kernel (``csrc/paged_decode_attention.cu``) takes single-token q
+``(B, KH, G, D)`` over a block pool ``(NB, block_size, KH, D)`` in
+float32 or bfloat16, or int8 with ``(NB, block_size, KH)`` float32
+scales.  Its plain version is :func:`repro_torch.kernels.ref.paged_decode_attention_ref`;
+:mod:`repro_torch.kernels.ops` picks between the two by the tensor's
+device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+#: launches of each kernel since the last reset; a wrapper adds one
+#: where it launches, and nowhere else
+launches = {"paged_decode_attention": 0, "paged_decode_attention_int8": 0}
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = build.load("paged_decode_attention")
+    fn = lib.paged_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_I] * 8 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_decode_attention: {msg}")
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
+                                k_scale=None, v_scale=None):
+    """Launch the CUDA kernel on CUDA tensors; raises on anything it does
+    not take.  ``kv_len`` is a (B,) int32 CUDA tensor."""
+    quant = k_scale is not None
+    B, KH, G, D = q.shape
+    NB, bs, KHp, Dp = k_pool.shape
+    pages = block_tables.shape[1]
+    tensors = [q, k_pool, v_pool, block_tables, kv_len]
+    if quant:
+        tensors += [k_scale, v_scale]
+    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+             "every tensor must be on the same CUDA device")
+    _require(all(t.is_contiguous() for t in tensors),
+             "every tensor must be contiguous")
+    _require(q.ndim == 4 and (KHp, Dp) == (KH, D)
+             and v_pool.shape == k_pool.shape,
+             f"shapes q {tuple(q.shape)} / pools {tuple(k_pool.shape)} "
+             f"do not agree")
+    _require(D in (64, 128) and G * D <= 2048,
+             f"head dim {D} (64 or 128) and group {G} (G*D <= 2048)")
+    _require(tuple(block_tables.shape) == (B, pages)
+             and block_tables.dtype == torch.int32,
+             "block_tables must be (B, pages) int32")
+    _require(tuple(kv_len.shape) == (B,) and kv_len.dtype == torch.int32,
+             "kv_len must be (B,) int32")
+    _require(q.dtype in (torch.float32, torch.bfloat16),
+             f"q dtype {q.dtype} (float32 or bfloat16)")
+    if quant:
+        _require(k_pool.dtype == torch.int8 and v_pool.dtype == torch.int8,
+                 "scales come with int8 pools")
+        _require(tuple(k_scale.shape) == (NB, bs, KH)
+                 and tuple(v_scale.shape) == (NB, bs, KH)
+                 and k_scale.dtype == torch.float32
+                 and v_scale.dtype == torch.float32,
+                 "scales must be (NB, block_size, KH) float32")
+    else:
+        _require(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
+                 "fp pools must have q's dtype")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None,
+                 block_tables.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                 B, KH, G, D, bs, pages, _DTYPE[q.dtype],
+                 _DTYPE[k_pool.dtype], stream)
+    build.check(err, "paged_decode_attention")
+    launches["paged_decode_attention_int8" if quant
+             else "paged_decode_attention"] += 1
+    return out

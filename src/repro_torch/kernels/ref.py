@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of the attention kernels: the counterparts of
+``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``).
+
+They are what a CPU tensor runs, and what ``chip_smoke.py`` holds each
+CUDA kernel against on the card.  Softmax is taken in float32 over the
+whole row, with masked scores at -1e30 as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG_INF = -1e30
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """q: (B, H, S, D); k/v: (B, KH, T, D) -> (B, H, S, D).  Causal masks
+    key t for query s when t > s (both counted from 0)."""
+    B, H, S, D = q.shape
+    _, KH, T, _ = k.shape
+    G = H // KH
+    qg = q.reshape(B, KH, G, S, D).float()
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, k.float()) / math.sqrt(D)
+    if causal:
+        mask = (torch.arange(S, device=q.device)[:, None]
+                >= torch.arange(T, device=q.device)[None, :])
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
+    return o.reshape(B, H, S, D).to(q.dtype)
+
+
+def normalize_kv_len(kv_len, batch: int, device=None) -> torch.Tensor:
+    """A scalar broadcasts to ``(batch,)``; a ``(batch,)`` vector passes
+    through; anything else raises (a silently broadcast wrong shape
+    means wrong masking)."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=device)
+    if kv_len.ndim == 0:
+        return kv_len.expand(batch).contiguous()
+    if tuple(kv_len.shape) == (batch,):
+        return kv_len
+    raise ValueError(
+        f"decode_attention kv_len must be a scalar or a ({batch},) vector "
+        f"matching the batch; got shape {tuple(kv_len.shape)}")
+
+
+def check_mixed_kv_len(kv_len, B: int, T: int, device=None) -> torch.Tensor:
+    """The mixed form's kv_len as (B, T) int32; any other shape raises."""
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=device)
+    if tuple(kv_len.shape) != (B, T):
+        raise ValueError(
+            f"mixed decode kv_len must be ({B}, {T}) — one valid length "
+            f"per (row, query token); got shape {tuple(kv_len.shape)}")
+    return kv_len
+
+
+def decode_attention_ref(q, k, v, kv_len):
+    """q: (B, H, D); k/v: (B, KH, T, D); kv_len: scalar or (B,) — row b
+    attends to positions < kv_len[b]."""
+    B, H, D = q.shape
+    _, KH, T, _ = k.shape
+    G = H // KH
+    kv_len = normalize_kv_len(kv_len, B, q.device)
+    qg = q.reshape(B, KH, G, D).float()
+    s = torch.einsum("bkgd,bktd->bkgt", qg, k.float()) / math.sqrt(D)
+    valid = (torch.arange(T, device=q.device)[None, None, None, :]
+             < kv_len[:, None, None, None])
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgt,bktd->bkgd", p, v.float())
+    return o.reshape(B, H, D).to(q.dtype)
+
+
+def mixed_decode_attention_ref(q, k, v, kv_len):
+    """q: (B, H, T, D) with T query tokens per row; k/v: (B, KH, L, D);
+    kv_len: (B, T) — query t of row b attends to positions
+    < kv_len[b, t].  Rows past a slot's live tokens are finite garbage."""
+    B, H, T, D = q.shape
+    _, KH, Lk, _ = k.shape
+    G = H // KH
+    kv_len = check_mixed_kv_len(kv_len, B, T, q.device)
+    qg = q.reshape(B, KH, G, T, D).float()
+    s = torch.einsum("bkgtd,bkld->bkgtl", qg, k.float()) / math.sqrt(D)
+    valid = (torch.arange(Lk, device=q.device)[None, None, :]
+             < kv_len[:, :, None])                              # (B, T, L)
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgtl,bkld->bkgtd", p, v.float())
+    return o.reshape(B, H, T, D).to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len, *,
+                               k_scale=None, v_scale=None):
+    """Gather version of the paged decode kernel.
+
+    q: (B, KH, G, D); k_pool/v_pool: (NB, block_size, KH, D);
+    block_tables: (B, pages) int32 — logical page p of slot b lives in
+    physical block ``block_tables[b, p]``; kv_len: scalar or (B,).
+    With ``k_scale``/``v_scale`` ((NB, block_size, KH) f32) the pools are
+    int8 and each gathered row is dequantized right after the gather.
+    A 5-d q (B, KH, G, T, D) with kv_len (B, T) is the mixed-step form.
+    """
+    mixed = q.ndim == 5
+    if mixed:
+        B, KH, G, T, D = q.shape
+    else:
+        B, KH, G, D = q.shape
+    bs = k_pool.shape[1]
+    pages = block_tables.shape[1]
+    bt = block_tables.long()
+
+    def gather(pool, scale):
+        g = pool[bt]                                  # (B, pages, bs, KH, D)
+        if scale is not None:
+            g = g.float() * scale[bt][..., None]
+        return g.permute(0, 3, 1, 2, 4).reshape(B, KH, pages * bs, D)
+
+    k, v = gather(k_pool, k_scale), gather(v_pool, v_scale)
+    if mixed:
+        out = mixed_decode_attention_ref(q.reshape(B, KH * G, T, D), k, v,
+                                         kv_len)
+        return out.reshape(B, KH, G, T, D)
+    out = decode_attention_ref(q.reshape(B, KH * G, D), k, v, kv_len)
+    return out.reshape(B, KH, G, D)

@@ -1,0 +1,154 @@
+"""Serving command of the port: requests in, completions out, through
+:class:`repro_torch.serve.ServeEngine` on one GPU.
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --width 0 --depth 0 --vocab 0 --batch 8 --requests 16 \
+        --prompt-len 256 --gen 32
+
+``--width/--depth/--vocab`` shrink the config (0 keeps the published
+value; the defaults are a small CPU-sized model).  Weights are random,
+drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
+a numpy generator with the same seed.  ``--device cpu`` runs the plain
+PyTorch versions on the CPU; without it the command needs a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
+
+
+def reduced_arch(arch, width: int, depth: int, vocab: int):
+    """Shrink ``arch`` (0 keeps a dimension), as the reference's
+    ``repro.launch.train.reduced_arch`` does for dense archs."""
+    kw = {}
+    if width:
+        kw.update(d_model=width, d_ff=width * 4, head_dim=0)
+        if width % arch.n_heads != 0:
+            kw.update(n_heads=8, n_kv_heads=min(8, arch.n_kv_heads))
+    if depth:
+        kw["n_layers"] = max(arch.period, (depth // arch.period) * arch.period)
+    if vocab:
+        kw["vocab"] = vocab
+    return dataclasses.replace(arch, **kw) if kw else arch
+
+
+def make_requests(vocab: int, n: int, prompt_len: int, gen: int,
+                  seed: int = 0) -> list[Request]:
+    rng = np.random.default_rng(seed)
+    return [Request(uid=i, prompt=tuple(int(t) for t in
+                                        rng.integers(1, vocab, prompt_len)),
+                    max_new_tokens=gen) for i in range(n)]
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="cache slot pool size (max in-flight requests)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="number of requests (default 2x --batch)")
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32,
+                    help="max new tokens per request")
+    ap.add_argument("--no-continuous", action="store_true",
+                    help="static-batch oracle: admit a full batch, drain "
+                         "it, admit the next")
+    ap.add_argument("--kv-block-size", type=int, default=128,
+                    help="tokens per paged-KV block")
+    ap.add_argument("--kv-pool-blocks", type=int, default=0,
+                    help="usable blocks in the pool (0 = dense-equivalent)")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=-1,
+                    help="per-step prompt-token budget of the mixed step "
+                         "(-1 = 2 * block size; 0 = stall-the-world)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable copy-on-write prefix sharing")
+    ap.add_argument("--prefix-evict", default="lru",
+                    choices=list(PrefixCache.EVICTION))
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
+                    help="int8 stores pool blocks with per-row f32 scales")
+    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--depth", type=int, default=4)
+    ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "bfloat16"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--seed", type=int, default=0)
+    return ap
+
+
+def main(argv=None) -> dict:
+    args = parser().parse_args(argv)
+    device = resolve_device(args.device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
+    arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
+                        args.vocab)
+    n_requests = args.requests or 2 * args.batch
+    max_len = args.prompt_len + args.gen
+    chunk = args.prefill_chunk_tokens
+    if chunk < 0:
+        chunk = 2 * args.kv_block_size
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = lm.init_lm(arch, dtype, generator=gen, device=device)
+    requests = make_requests(arch.vocab, n_requests, args.prompt_len,
+                             args.gen, args.seed)
+    mode = "static" if args.no_continuous else "continuous"
+    engine = ServeEngine(params, arch, ServeConfig(
+        max_batch=args.batch, max_len=max_len, policy=mode,
+        kv_block_size=args.kv_block_size,
+        kv_pool_blocks=args.kv_pool_blocks or None,
+        prefill_chunk_tokens=chunk, dtype=dtype,
+        prefix_cache=not args.no_prefix_cache,
+        prefix_evict=args.prefix_evict,
+        kv_quant=None if args.kv_quant == "none" else args.kv_quant))
+    t_warm = engine.warmup(sorted({len(r.prompt) for r in requests}))
+    t0 = time.perf_counter()
+    completions = engine.run(requests)
+    wall = time.perf_counter() - t0
+
+    s = engine.stats
+    out_tokens = sum(len(c.tokens) for c in completions)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    print(f"arch={arch.name} slots={args.batch} requests={n_requests} "
+          f"prompt={args.prompt_len} gen<={args.gen} mode={mode} "
+          f"dtype={args.dtype} device={where} kv=paged(bs={engine.block_size}"
+          f", peak_blocks={engine.peak_blocks_in_use}"
+          + (f", quant={engine.kv_quant}" if engine.kv_quant else "") + ")")
+    print(f"kv reserved: {engine.kv_bytes_reserved / 2**20:.2f} MiB")
+    print(f"warmup: {t_warm:.2f} s (excluded from the rates below)")
+    if engine.chunked:
+        print(f"mixed:   {s['decode_s'] * 1e3:.1f} ms over "
+              f"{int(s['decode_steps'])} steps, "
+              f"{int(s['prefill_tokens'])} prompt tokens in chunks of "
+              f"{engine.chunk}")
+    else:
+        print(f"prefill: {s['prefill_s'] * 1e3:.1f} ms for "
+              f"{int(s['prefill_tokens'])} prompt tokens")
+        print(f"decode:  {s['decode_s'] * 1e3:.1f} ms over "
+              f"{int(s['decode_steps'])} steps")
+    if engine.prefix is not None:
+        print(f"prefix cache: hit_rate={engine.prefix_hit_rate:.2f} "
+              f"prefill_tokens_saved={engine.prefill_tokens_saved}")
+    itl = (np.percentile(np.asarray(engine.itl_samples) * 1e3, [50, 99])
+           if engine.itl_samples else [float("nan")] * 2)
+    print(f"inter-token latency: p50={itl[0]:.2f} ms p99={itl[1]:.2f} ms")
+    print(f"end-to-end: {out_tokens} output tokens in {wall * 1e3:.1f} ms "
+          f"({out_tokens / max(wall, 1e-9):.1f} tok/s)")
+    for c in sorted(completions, key=lambda c: c.uid)[:2]:
+        print(f"  uid={c.uid} [{c.finish_reason}]", c.tokens[:16])
+    return {"completions": completions, "wall_s": wall,
+            "tok_s": out_tokens / max(wall, 1e-9), "itl_ms": list(itl)}
+
+
+if __name__ == "__main__":
+    main()

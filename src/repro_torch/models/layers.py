@@ -1,0 +1,306 @@
+"""Model primitives of the dense decoder-only LM, in PyTorch: the
+counterparts of ``repro.models.layers``.
+
+Parameters are plain dicts of tensors in the reference's layouts
+(``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), so the bridge moves them
+across unchanged.  The reference's ``constrain`` (sharding under a
+searched plan) has no counterpart yet: the port runs on one device.
+
+Cache updates happen in place: where the reference returns a new cache
+and relies on jit donation to reuse the buffer, these functions write
+into the cache tensors they were given and return the same dict.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.quant import quantize_kv
+
+
+# --------------------------------------------------------------------------- #
+# init helpers
+# --------------------------------------------------------------------------- #
+def dense_init(shape, dtype, *, fan_in: int, generator, device):
+    std = 1.0 / math.sqrt(fan_in)
+    return (torch.randn(shape, generator=generator, device=device)
+            * std).to(dtype)
+
+
+def embed_init(shape, dtype, *, generator, device):
+    return (torch.randn(shape, generator=generator, device=device)
+            * 0.02).to(dtype)
+
+
+# --------------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------------- #
+def rms_norm(x, scale, eps: float = 1e-6):
+    """RMS norm in float32, scaled by ``1 + scale`` (zero-init scales)."""
+    dt = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * (1.0 + scale.float())
+    return y.to(dt)
+
+
+def init_norm(arch, dtype, *, lead=(), device=None):
+    if arch.nonparam_norm:
+        return {}
+    return {"scale": torch.zeros((*lead, arch.d_model), dtype=dtype,
+                                 device=device)}
+
+
+def apply_norm(p: dict, x):
+    return rms_norm(x, p.get("scale"))
+
+
+# --------------------------------------------------------------------------- #
+# rotary embeddings
+# --------------------------------------------------------------------------- #
+def rope(x, positions, theta: float):
+    """x: (..., S, H, D) with D even; positions: (..., S).  Rotates the
+    two halves of the head dim (not interleaved pairs)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device)
+                      * (math.log(theta) / half))
+    ang = positions[..., :, None].float() * freqs        # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                   # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+def init_attention(arch, dtype, *, generator, device, lead=()):
+    d, hd, H, KH = arch.d_model, arch.hd, arch.n_heads, arch.n_kv_heads
+    kw = dict(generator=generator, device=device)
+    p = {
+        "wq": dense_init((*lead, d, H, hd), dtype, fan_in=d, **kw),
+        "wk": dense_init((*lead, d, KH, hd), dtype, fan_in=d, **kw),
+        "wv": dense_init((*lead, d, KH, hd), dtype, fan_in=d, **kw),
+        "wo": dense_init((*lead, H, hd, d), dtype, fan_in=H * hd, **kw),
+    }
+    zeros = lambda *s: torch.zeros((*lead, *s), dtype=dtype, device=device)
+    if arch.qkv_bias:
+        p["bq"], p["bk"], p["bv"] = zeros(H, hd), zeros(KH, hd), zeros(KH, hd)
+    if arch.qk_norm:
+        p["q_norm"], p["k_norm"] = zeros(hd), zeros(hd)
+    return p
+
+
+def _proj(x, w):
+    """(B, S, d) x (d, H, hd) -> (B, S, H, hd)."""
+    d, H, hd = w.shape
+    return (x @ w.reshape(d, H * hd)).reshape(*x.shape[:-1], H, hd)
+
+
+def _scatter_rows(pool, phys, rows):
+    """In place: ``pool`` (NB, bs, ...) viewed as token rows gets
+    ``rows`` at flat token slots ``phys``."""
+    NB, bs = pool.shape[:2]
+    pool.view(NB * bs, *pool.shape[2:])[phys] = rows
+
+
+def _later(what: str):
+    return NotImplementedError(
+        f"{what} is ported in slice 2 (ROADMAP.md); this slice serves "
+        f"through the paged KV cache")
+
+
+def attention(p: dict, x, arch, *, positions, causal: bool = True,
+              kv_cache: dict | None = None, cache_pos=None,
+              block_tables=None, q_lens=None):
+    """GQA attention block (qkv projection + core).
+
+    Three forms, as in the reference:
+
+    * no cache, or a prefill (scalar ``cache_pos == 0``) into a dense
+      cache row: causal self-attention through ``flash_attention``;
+    * paged single-token decode: ``kv_cache`` leaves are a block pool
+      (NB, block_size, KH, hd), ``block_tables`` (B, pages) maps row b's
+      logical pages to pool blocks, ``cache_pos`` is (B,).  The new token
+      is written (quantized for an int8 pool) and attended through
+      ``paged_decode_attention``;
+    * the mixed step (``q_lens`` given, S > 1): row b's first
+      ``q_lens[b]`` tokens are live at positions ``cache_pos[b] + t``;
+      padding writes are dropped (dense) or parked in the trash block 0
+      (paged).
+
+    Dense single-token decode and mid-sequence continuation raise
+    ``NotImplementedError`` (slice 2).  Returns (out (B, S, H, hd), cache).
+    """
+    B, S, _ = x.shape
+    KH, H, hd = arch.n_kv_heads, arch.n_heads, arch.hd
+    G = H // KH
+
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if "bq" in p:
+        q = q + p["bq"]
+        k, v = k + p["bk"], v + p["bv"]
+    if "k_norm" in p:
+        k = rms_norm(k, p["k_norm"])
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+    k = rope(k, positions, arch.rope_theta)
+    q = rope(q, positions, arch.rope_theta)
+
+    per_slot = torch.is_tensor(cache_pos) and cache_pos.ndim == 1
+
+    if kv_cache is not None and q_lens is not None and S > 1:
+        if not per_slot:
+            raise ValueError(
+                "mixed-step attention requires per-slot (B,) cache_pos; "
+                f"got {getattr(cache_pos, 'shape', cache_pos)}")
+        q_lens = q_lens.to(torch.int32)
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        t_ar = torch.arange(S, device=x.device)
+        valid = t_ar[None, :] < q_lens[:, None]                   # (B, S)
+        idx = cache_pos[:, None] + t_ar[None, :]                  # (B, S)
+        kv_len = cache_pos[:, None] + torch.minimum(t_ar + 1, q_lens[:, None])
+        kd, vd = k.to(ck.dtype), v.to(cv.dtype)
+        cks = cvs = None
+        if block_tables is not None:
+            bs = ck.shape[1]
+            pages = block_tables.shape[1]
+            # clamp for the table gather only; invalid writes go to the
+            # trash block 0 (clamping the physical slot could hit a live
+            # block)
+            idxc = torch.clamp(idx, max=pages * bs - 1).long()
+            blk = torch.gather(block_tables.long(), 1, idxc // bs)
+            phys = torch.where(valid, blk * bs + idxc % bs,
+                               torch.zeros_like(blk))             # (B, S)
+            cks, cvs = kv_cache.get("k_scale"), kv_cache.get("v_scale")
+            if cks is not None:
+                kd, ks = quantize_kv(k)
+                vd, vs = quantize_kv(v)
+                _scatter_rows(cks, phys, ks)
+                _scatter_rows(cvs, phys, vs)
+            _scatter_rows(ck, phys, kd)
+            _scatter_rows(cv, phys, vd)
+        else:
+            rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
+            ck[rows[valid], idx[valid].long()] = kd[valid]
+            cv[rows[valid], idx[valid].long()] = vd[valid]
+        qg = q.transpose(1, 2).reshape(B, KH, G, S, hd)
+        if block_tables is not None:
+            o = ops.paged_decode_attention(qg, ck, cv, block_tables, kv_len,
+                                           k_scale=cks, v_scale=cvs)
+        else:
+            o = ops.decode_attention(qg, ck.transpose(1, 2),
+                                     cv.transpose(1, 2), kv_len)
+        return o.reshape(B, H, S, hd).transpose(1, 2), kv_cache
+
+    if kv_cache is not None and block_tables is not None:
+        if S != 1:
+            raise ValueError(
+                f"paged attention requires single-token decode (got S={S})")
+        if not per_slot:
+            raise ValueError(
+                "paged attention requires per-slot (B,) cache_pos; got "
+                f"{getattr(cache_pos, 'shape', cache_pos)}")
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        bs = ck.shape[1]
+        cp = cache_pos.long()
+        phys = (block_tables.long()[torch.arange(B, device=x.device), cp // bs]
+                * bs + cp % bs)                                   # (B,)
+        if q_lens is not None:
+            # a row that advances no token parks its write in the trash
+            # block: a slot waiting to prefill can sit inside a prefix
+            # block it shares, where the write would clobber a live token
+            # (the reference writes every row here; see ROADMAP.md, C)
+            phys = torch.where(q_lens > 0, phys, torch.zeros_like(phys))
+        cks, cvs = kv_cache.get("k_scale"), kv_cache.get("v_scale")
+        if cks is not None:
+            kd, ks = quantize_kv(k[:, 0])                         # (B, KH, hd)
+            vd, vs = quantize_kv(v[:, 0])
+            _scatter_rows(cks, phys, ks)
+            _scatter_rows(cvs, phys, vs)
+        else:
+            kd, vd = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
+        _scatter_rows(ck, phys, kd)
+        _scatter_rows(cv, phys, vd)
+        qg = q.reshape(B, KH, G, hd)
+        o = ops.paged_decode_attention(qg, ck, cv, block_tables,
+                                       positions[..., -1] + 1,
+                                       k_scale=cks, v_scale=cvs)
+        return o.reshape(B, 1, H, hd), kv_cache
+
+    if kv_cache is not None:
+        if not (isinstance(cache_pos, int) and cache_pos == 0):
+            raise _later("single-token decode over a dense cache "
+                         "(decode_attention)" if per_slot or S == 1
+                         else "continuing a dense cache mid-sequence")
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        ck[:, :S] = k.to(ck.dtype)
+        cv[:, :S] = v.to(cv.dtype)
+        k, v = ck, cv
+        causal = True
+    o = ops.flash_attention(q.transpose(1, 2).contiguous(),
+                            k.transpose(1, 2).contiguous(),
+                            v.transpose(1, 2).contiguous(),
+                            causal=causal)
+    return o.transpose(1, 2), kv_cache
+
+
+def attention_out(p: dict, attn):
+    """o-proj: (B, S, H, hd) -> (B, S, d_model)."""
+    H, hd, d = p["wo"].shape
+    return attn.reshape(*attn.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+# --------------------------------------------------------------------------- #
+# dense SwiGLU MLP
+# --------------------------------------------------------------------------- #
+def init_mlp(arch, dtype, *, generator, device, lead=()):
+    d, f = arch.d_model, arch.d_ff
+    kw = dict(generator=generator, device=device)
+    return {
+        "wi": dense_init((*lead, d, f), dtype, fan_in=d, **kw),
+        "wg": dense_init((*lead, d, f), dtype, fan_in=d, **kw),
+        "wo": dense_init((*lead, f, d), dtype, fan_in=f, **kw),
+    }
+
+
+def mlp(p: dict, x):
+    h = x @ p["wi"]
+    g = x @ p["wg"]
+    return (F.silu(g) * h) @ p["wo"]
+
+
+# --------------------------------------------------------------------------- #
+# embedding / head
+# --------------------------------------------------------------------------- #
+def init_embed(arch, dtype, *, generator, device):
+    return {"table": embed_init((arch.vocab, arch.d_model), dtype,
+                                generator=generator, device=device)}
+
+
+def embed(p: dict, tokens):
+    return p["table"][tokens]
+
+
+def init_lm_head(arch, dtype, *, generator, device):
+    if arch.tie_embeddings:
+        return {}
+    return {"w": dense_init((arch.d_model, arch.vocab), dtype,
+                            fan_in=arch.d_model, generator=generator,
+                            device=device)}
+
+
+def lm_head(p: dict, x, embed_p: dict, arch):
+    w = embed_p["table"].T if arch.tie_embeddings else p["w"]
+    return x @ w

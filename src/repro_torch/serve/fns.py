@@ -1,0 +1,65 @@
+"""Serving step builders: the counterpart of ``repro.serve.fns``.
+
+``make_serve_fns`` returns ``(prefill, step)`` over the port's dense LM.
+There is no jit and no plan: PyTorch runs eagerly on one device, and the
+cache is updated in place where the reference donated it to jit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import lm
+from repro_torch.models.arch import ArchConfig
+
+
+def make_serve_fns(arch: ArchConfig):
+    """Build ``(prefill, step)``.
+
+    ``step(params, tokens, cache, pos, q_lens=None, block_tables=None)``
+    is the unified mixed step over a paged cache.  ``pos`` is a
+    scalar or a (B,) vector of per-slot positions; ``tokens`` is (B, T)
+    with ``q_lens`` marking how many of the T columns each row advances.
+
+    A mixed step (``q_lens`` given, T > 1) returns (B, 1, V) next-token
+    logits: every row's last live logits in column 0.  It runs as a
+    (B, 1) decode pass with the granted row masked to ``q_lens == 0``,
+    then a (1, T) chunk pass on the granted row alone, so the chunk never
+    pays for (B - 1) x T padded positions.  The scheduler hands a step's
+    whole chunk budget to one slot, so exactly one row has
+    ``q_lens == T`` and ``argmax(q_lens)`` finds it.
+    """
+    lm.check_dense(arch)
+
+    def prefill(params, batch, cache):
+        return lm.prefill(params, batch, cache, arch)
+
+    def _model_step(params, tokens, cache, pos, q_lens, block_tables):
+        return lm.step(params, tokens, cache, pos, arch, q_lens=q_lens,
+                       block_tables=block_tables)
+
+    def step(params, tokens, cache, pos, q_lens=None, block_tables=None):
+        if q_lens is None or tokens.shape[1] == 1:
+            return _model_step(params, tokens, cache, pos, q_lens,
+                               block_tables)
+        B, T = tokens.shape
+        dev = tokens.device
+        q_lens = torch.as_tensor(q_lens, dtype=torch.int32, device=dev)
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
+        # 1. (B, 1) decode pass; the granted row is masked to q_lens == 0,
+        #    so its write is parked in the trash block.  (Over a dense
+        #    cache this pass raises until slice 2 ports dense decode.)
+        dec_q = (q_lens == 1).to(torch.int32)
+        logits, cache = _model_step(params, tokens[:, :1], cache, pos, dec_q,
+                                    block_tables)
+        # 2. (1, T) chunk pass on row g: the pool passes whole with row g's
+        #    table row
+        g = int(torch.argmax(q_lens))
+        chunk_logits, _ = _model_step(params, tokens[g:g + 1], cache,
+                                      pos[g:g + 1], q_lens[g:g + 1],
+                                      block_tables[g:g + 1])
+        # q_lens[g] == T: the chunk's last column is row g's next token
+        logits[g, 0] = chunk_logits[0, -1].to(logits.dtype)
+        return logits, cache
+
+    return prefill, step

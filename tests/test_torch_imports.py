@@ -1,0 +1,93 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither ``jax`` nor any module of the reference package ``repro``; its
+entry points refuse to run without a GPU unless given ``device="cpu"``;
+and ``chip_smoke.py`` fails (and prints no result) where there is no
+card, and where it stands without the rest of the repository."""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.")
+             or n == "repro" or n.startswith("repro."))
+print(len(names), bad)
+sys.exit(1 if bad or len(names) < 20 else 0)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(SRC)
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    r = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.strip().endswith("[]")
+
+
+def test_entry_points_need_a_gpu_or_an_explicit_cpu():
+    from repro_torch.device import resolve_device
+    assert resolve_device("cpu").type == "cpu"
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    if torch.cuda.is_available():
+        assert resolve_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            resolve_device()
+        from repro_torch import configs
+        from repro_torch.models import lm
+        arch = configs.reduced("llama3.2-1b")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init_lm(arch, generator=torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lm.init_paged_cache(arch, 3, 4, 2)
+
+
+def test_serve_launcher_runs_on_cpu_when_asked():
+    from repro_torch.launch import serve
+    out = serve.main(["--device", "cpu", "--batch", "2", "--requests", "3",
+                      "--prompt-len", "9", "--gen", "3", "--kv-block-size",
+                      "4", "--width", "128", "--depth", "2", "--vocab", "64"])
+    assert sorted(c.uid for c in out["completions"]) == [0, 1, 2]
+    assert all(len(c.tokens) == 3 for c in out["completions"])
+
+
+def _chip_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=_env() if cwd == ROOT else None,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    r = _chip_smoke(ROOT)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = _chip_smoke(tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout

@@ -1,0 +1,134 @@
+"""The port's dense LM against ``repro.models.lm`` on the four reduced
+dense configs, with the reference's weights moved across by the bridge:
+``prefill`` logits and cache over a dense row, and ``step`` logits over
+dense, paged and int8 paged caches (a ragged mixed step, then a
+single-token decode on the paged pools).  Float32, tolerance 1e-5 on
+logits; int8 payloads compare within one quantization step.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as C
+from repro.models import lm as jlm
+from repro_torch import configs as TC
+from repro_torch.bridge import params_from_jax, params_to_numpy
+from repro_torch.models import lm
+
+ARCHS = ["llama3_2_1b", "qwen2_5_3b", "olmo_1b", "granite_3_2b"]
+TOL = 1e-5
+
+
+def _setup(name):
+    arch = C.reduced(name)
+    jp = jlm.init_lm(jax.random.PRNGKey(0), arch, jnp.float32)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return arch, jp, tp
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_configs_are_copies_of_the_reference(name):
+    assert dataclasses.asdict(TC.get(name)) == dataclasses.asdict(C.get(name))
+    assert (dataclasses.asdict(TC.reduced(name))
+            == dataclasses.asdict(C.reduced(name)))
+
+
+def test_other_archs_name_their_slice():
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        TC.get("olmoe-1b-7b")
+    with pytest.raises(NotImplementedError, match="RWKV6 slice"):
+        TC.get("rwkv6_1b6")
+    with pytest.raises(ValueError, match="unknown arch"):
+        TC.get("gpt-17")
+    moe = dataclasses.replace(C.reduced("olmoe_1b_7b"))
+    with pytest.raises(NotImplementedError, match="MoE slice"):
+        lm.init_lm(moe, generator=torch.Generator().manual_seed(0),
+                   device="cpu")
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_prefill_logits_and_cache(name):
+    arch, jp, tp = _setup(name)
+    tokens = np.random.default_rng(1).integers(0, arch.vocab, (2, 7))
+    jc = jlm.init_cache(arch, 2, 9, jnp.float32)
+    tc = lm.init_cache(arch, 2, 9, torch.float32, device="cpu")
+    want, jc = jlm.prefill(jp, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                           jc, arch)
+    got, tc = lm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, tc, arch)
+    _close(got, want)
+    jnc = jax.tree.map(np.asarray, jc)
+    tnc = params_to_numpy(tc)
+    for key in ("k", "v"):
+        _close(tnc["l0"]["kv"][key], jnc["l0"]["kv"][key])
+
+
+def _caches(arch, kind):
+    if kind == "dense":
+        return (jlm.init_cache(arch, 3, 16, jnp.float32),
+                lm.init_cache(arch, 3, 16, torch.float32, device="cpu"), None)
+    quant = "int8" if kind == "int8" else None
+    tables = np.array([[1, 2, 3, 0], [4, 5, 0, 0], [0, 0, 0, 0]], np.int32)
+    return (jlm.init_paged_cache(arch, 6, 4, 3, jnp.float32, kv_quant=quant),
+            lm.init_paged_cache(arch, 6, 4, 3, torch.float32, kv_quant=quant,
+                                device="cpu"), tables)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged", "int8"])
+@pytest.mark.parametrize("name", ARCHS)
+def test_step_logits_over_caches(name, kind):
+    arch, jp, tp = _setup(name)
+    jc, tc, tables = _caches(arch, kind)
+    rng = np.random.default_rng(2)
+    jbt = None if tables is None else jnp.asarray(tables)
+    tbt = None if tables is None else torch.from_numpy(tables)
+    # a ragged mixed step from depth 0: row 0 prefills 6, row 1 3, row 2 idle
+    toks = rng.integers(0, arch.vocab, (3, 6))
+    q_lens = np.array([6, 3, 0], np.int32)
+    pos = np.zeros(3, np.int32)
+    want, jc = jlm.step(jp, jnp.asarray(toks, jnp.int32), jc, jnp.asarray(pos),
+                        arch, q_lens=jnp.asarray(q_lens), block_tables=jbt)
+    got, tc = lm.step(tp, torch.from_numpy(toks), tc, torch.from_numpy(pos),
+                      arch, q_lens=torch.from_numpy(q_lens), block_tables=tbt)
+    tol = 1e-4 if kind == "int8" else TOL
+    _close(got[0], want[0], tol)
+    _close(got[1, :3], want[1, :3], tol)
+    if tables is None:
+        with pytest.raises(NotImplementedError, match="slice 2"):
+            lm.step(tp, torch.from_numpy(toks[:, :1]), tc,
+                    torch.from_numpy(q_lens), arch)
+        return
+    # then one single-token decode through the paged kernel path
+    tok = rng.integers(0, arch.vocab, (3, 1))
+    pos = q_lens.copy()
+    want, jc = jlm.decode_step(jp, jnp.asarray(tok, jnp.int32), jc,
+                               jnp.asarray(pos), arch, block_tables=jbt)
+    got, tc = lm.decode_step(tp, torch.from_numpy(tok), tc,
+                             torch.from_numpy(pos), arch, block_tables=tbt)
+    _close(got[:2], want[:2], tol)
+    jnc = jax.tree.map(np.asarray, jc)["l0"]["kv"]
+    tnc = params_to_numpy(tc)["l0"]["kv"]
+    for key in jnc:                         # blocks 1..5 hold live tokens
+        a, b = tnc[key][:, 1:], jnc[key][:, 1:]
+        if a.dtype == np.int8:
+            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+        else:
+            _close(a, b)
+
+
+def test_decode_positions_validates():
+    pos, cache_pos = lm.decode_positions(5, 3)
+    assert tuple(pos.shape) == (1,) and cache_pos.ndim == 0
+    pos, cache_pos = lm.decode_positions([1, 2, 3], 3)
+    assert tuple(pos.shape) == (3, 1) and tuple(cache_pos.shape) == (3,)
+    with pytest.raises(ValueError, match="decode pos"):
+        lm.decode_positions([1, 2], 3)
