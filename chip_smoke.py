@@ -12,11 +12,18 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
 2. kernels: each CUDA kernel against its plain PyTorch version on the
    card, at the serve engine's shapes (paged decode f32 / bf16 / int8,
    flash prefill f32 / bf16), with ragged kv_len, tables that point at
-   the trash block and a prompt length that is not a multiple of 128.
-   One JSON line per phase: error and tolerance, the kernel's, the plain
-   version's and (flash) SDPA's time, and the bound.
+   the trash block and a prompt length that is not a multiple of 128;
+   and at the train step's shapes (flash causal q (8, 32, 256, 64), WKV6
+   (8, 32, 256, 64) f32 / bf16).  One JSON line per phase: error and
+   tolerance, the kernel's, the plain version's and (flash) SDPA's time,
+   and the bound.  Then the gradients of the kernels' autograd Functions
+   (forward the kernel, backward the plain version's gradient) against
+   the plain versions' own autograd.
 3. reference: a small model served on the card and on the CPU (plain
-   versions) with the same weights; first-token logits must agree.
+   versions) with the same weights; first-token logits must agree.  Then
+   two train steps of a small llama and a small rwkv6 on the card and on
+   the CPU from the same weights and batches: metrics, moments and
+   parameters must agree.
 4. serve: full-width llama3.2-1b in float32, ServeEngine with 8 slots and
    max_len 1024, 12 seeded requests (prompts 60-700 tokens, half behind a
    shared 256-token prefix, 32 new tokens each), in three modes:
@@ -24,7 +31,16 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    (flash), (c) int8 pool.  Launch counts are reset before and read after
    each run; each mode must launch the kernels it uses.  Then a short
    bfloat16 run of (a).
-5. the ``kernels`` JSON line, the card's name and power limit, and the
+5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
+   batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
+   with the train command's settings.  Launch counts are reset before and
+   read after the 4 steps; each run must launch its kernel on every step
+   (flash >= 16, WKV6 >= 24), give finite losses and a finite, nonzero
+   gradient to every parameter leaf at step 1 (read from the first AdamW
+   moment).  Step time, tok/s, peak memory and the device's busy share of
+   one profiled step.  Then the train command itself on the card, at the
+   published width and depth 2.
+6. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -33,6 +49,7 @@ Everything measured is also written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +77,26 @@ SERVE_LOGIT_TOL = 2e-3
 # boundary may quantize to the neighbouring int8 value on one side (one
 # step is 1/127 of the row's absmax), which moves logits by ~1e-3
 REF_LOGIT_TOL = {"a": 1e-4, "b": 1e-4, "c": 5e-3}
+# WKV6 outputs grow with the decayed sum over the sequence: its tolerances
+# are relative to the largest output (sums in another order in float32;
+# one bf16 rounding of the output in bfloat16)
+WKV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# an autograd Function's backward is the plain version's gradient at the
+# same inputs: the same arithmetic, so only the forward may differ
+GRAD_TOL = 1e-5
+# small train steps, card vs CPU: metrics, moments and parameters within
+# 1e-4 of the largest entry (moments) or 1e-5 (metrics, relative), or 4x
+# the CPU's own float32 error where float32 is the limit (measured as the
+# gap between the CPU's float32 and float64 runs; the rwkv6 group norm of
+# a head whose output barely spreads at the first token amplifies
+# rounding); a parameter whose gradient sits at the rounding level moves
+# by +-lr at a step on either side, so at most 0.1% of a leaf's elements
+# may differ by more than 1e-5 and none by more than 2 * sum(lr) + 1e-5
+TRAIN_REF_TOL = {"metric": 1e-5, "moment": 1e-4, "noise": 4,
+                 "param": 1e-5, "param_frac": 1e-3}
+# the train command's optimizer and step settings (launch/train.py)
+TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
+TRAIN_CFG = {"q_chunk": 256, "time_chunk": 32, "remat": True}
 
 failures: list[str] = []
 record: dict = {"phases": []}
@@ -246,6 +283,127 @@ def phase_flash(torch, timer, device, name, dtype, S=700, T=768):
     return res
 
 
+def phase_flash_train(torch, timer, device, name="flash-train-f32"):
+    """The llama3.2-1b train step's attention: q (8, 32, 256, 64) against
+    k/v (8, 8, 256, 64), causal, float32."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn(8, 32, 256, 64, generator=g, device=device)
+    k = torch.randn(8, 8, 256, 64, generator=g, device=device)
+    v = torch.randn(8, 8, 256, 64, generator=g, device=device)
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = ref.attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    B, H, S, D = q.shape
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * 4
+    b_ms, b_by = bound(bytes_, flops, "float32")
+    res = {"phase": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
+           "max_abs_err": err, "tol": TOL["float32"],
+           "kernel_ms": timer(lambda: ops.flash_attention(q, k, v,
+                                                          causal=True)),
+           "plain_ms": timer(lambda: ref.attention_ref(q, k, v, causal=True),
+                             iters=5),
+           "library_ms": timer(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_,
+           "flops": flops}
+    emit(res)
+    if not err <= TOL["float32"]:
+        fail(f"{name}: max abs err {err} > {TOL['float32']}")
+    return res
+
+
+def wkv_inputs(torch, device, dtype, B=8, H=32, T=256, N=64):
+    """rwkv6-1.6b's time-mix shapes at batch 8 x 256 tokens: r/k/v in the
+    activation dtype, w = exp(-exp(w_log)) and u in float32."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    r, k, v = (torch.randn(B, H, T, N, generator=g, device=device).to(dtype)
+               for _ in range(3))
+    w_log = torch.rand(B, H, T, N, generator=g, device=device) * 5 - 4
+    w = torch.exp(-torch.exp(w_log))
+    u = torch.randn(H, N, generator=g, device=device)
+    return r, k, v, w, u
+
+
+def phase_wkv6(torch, timer, device, name, dtype):
+    from repro_torch.kernels import ops, ref
+    r, k, v, w, u = wkv_inputs(torch, device, dtype)
+    got = ops.wkv6(r, k, v, w, u)
+    want = ref.wkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    scale = float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    B, H, T, N = r.shape
+    # per step: o = r.S + (r.(u*k)) v is 2 N^2 (+ O(N)); S <- w*S + k v^T
+    # is 3 N^2
+    flops = 5 * B * H * T * N * N
+    bytes_ = (4 * r.numel() * r.element_size() + w.numel() * 4
+              + u.numel() * 4)
+    b_ms, b_by = bound(bytes_, flops, "float32")
+    res = {"phase": name, "shape": list(r.shape), "max_abs_err": err,
+           "max_abs_out": scale, "tol": WKV_TOL[dt] * scale,
+           "kernel_ms": timer(lambda: ops.wkv6(r, k, v, w, u), iters=20),
+           "kernel_call_ms": timer(lambda: ops.wkv6(r, k, v, w, u), iters=20,
+                                   host=True),
+           "plain_ms": timer(lambda: ref.wkv6_scan(r, k, v, w, u), iters=3,
+                             warm=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": bytes_, "flops": flops}
+    emit(res)
+    if not err <= WKV_TOL[dt] * scale:
+        fail(f"{name}: max abs err {err} > {WKV_TOL[dt]} x {scale}")
+    return res
+
+
+def phase_grads(torch, device):
+    """Both autograd Functions at the train shapes: output and every input
+    gradient against the plain version's own autograd on the same inputs."""
+    from repro_torch.kernels import ops, ref
+
+    def run(fn, inputs, g):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        out = fn(*leaves)
+        out.backward(g)
+        torch.cuda.synchronize()
+        return [out.detach()] + [t.grad for t in leaves]
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    cases = {
+        "flash-grad-f32": (
+            lambda *a: ops.flash_attention(*a, causal=True),
+            lambda *a: ref.attention_ref(*a, causal=True),
+            [torch.randn(8, 32, 256, 64, generator=gen, device=device),
+             torch.randn(8, 8, 256, 64, generator=gen, device=device),
+             torch.randn(8, 8, 256, 64, generator=gen, device=device)]),
+        "wkv6-grad-f32": (
+            lambda *a: ops.wkv6(*a, chunk=TRAIN_CFG["time_chunk"]),
+            lambda *a: ref.wkv6_scan(*a, chunk=TRAIN_CFG["time_chunk"]),
+            list(wkv_inputs(torch, device, torch.float32))),
+    }
+    for name, (kern, plain, inputs) in cases.items():
+        g = torch.randn(inputs[0].shape, generator=gen, device=device)
+        t0 = time.perf_counter()
+        got = run(kern, inputs, g)
+        kern_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = run(plain, inputs, g)
+        plain_s = time.perf_counter() - t0
+        errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(got, want)]
+        nonzero = all(float(t.abs().max()) > 0 for t in got[1:])
+        emit({"phase": name, "rel_err_out": errs[0],
+              "rel_err_grads": errs[1:], "tol": GRAD_TOL,
+              "fwd_bwd_s": kern_s, "plain_fwd_bwd_s": plain_s,
+              "grads_nonzero": nonzero})
+        if not (max(errs) <= GRAD_TOL and nonzero):
+            fail(f"{name}: relative errors {errs} (tol {GRAD_TOL}), "
+                 f"nonzero gradients {nonzero}")
+
+
 # --------------------------------------------------------------------------- #
 # phases 3-4: serving
 # --------------------------------------------------------------------------- #
@@ -388,21 +546,15 @@ def phase_reference(torch, device):
             fail(f"reference-{mode}: card vs CPU logits differ by {err}")
 
 
-def profile_run(torch, params, arch, requests, device):
-    """Mode (a) once more under ``torch.profiler``: the device's busy share
-    of the run's wall time and the kernels that take the most device time.
-    The profiler adds host time of its own, so the busy share it gives is
-    a lower bound."""
+def busy_share(torch, fn):
+    """Run ``fn`` once under ``torch.profiler``; returns (wall s, device
+    busy s, top kernels)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve import ServeConfig
-    eng = recording_engine()(params, arch, ServeConfig(
-        max_batch=8, max_len=1024, dtype=torch.float32))
-    eng.warmup(sorted({len(r.prompt) for r in requests}))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(requests)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_us = lambda e: getattr(e, "self_device_time_total",
@@ -415,6 +567,19 @@ def profile_run(torch, params, arch, requests, device):
     busy = sum(dev_us(e) for e in rows) / 1e6
     top = [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
             "count": e.count} for e in rows[:10]]
+    return wall, busy, top
+
+
+def profile_run(torch, params, arch, requests, device):
+    """Mode (a) once more under ``torch.profiler``: the device's busy share
+    of the run's wall time and the kernels that take the most device time.
+    The profiler adds host time of its own, so the busy share it gives is
+    a lower bound."""
+    from repro_torch.serve import ServeConfig
+    eng = recording_engine()(params, arch, ServeConfig(
+        max_batch=8, max_len=1024, dtype=torch.float32))
+    eng.warmup(sorted({len(r.prompt) for r in requests}))
+    wall, busy, top = busy_share(torch, lambda: eng.run(requests))
     return {"phase": "profile-a", "wall_s": wall, "device_busy_s": busy,
             "device_busy_share": busy / wall if busy else None,
             "top_kernels": top}
@@ -477,6 +642,194 @@ def phase_serve(torch, device):
 
 
 # --------------------------------------------------------------------------- #
+# phases 3 and 5: training
+# --------------------------------------------------------------------------- #
+def make_step(torch, arch, steps):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainConfig, make_train_step
+    return make_train_step(arch, None, TrainConfig(
+        optimizer=AdamWConfig(total_steps=steps, **TRAIN_OPT), **TRAIN_CFG))
+
+
+def batches_for(arch, batch, seq, steps):
+    from repro_torch.data import make_dataset
+    from repro_torch.models.arch import ShapeSpec
+    ds = make_dataset(arch, ShapeSpec("custom", seq, batch, "train"))
+    return [ds.batch_at(s)["tokens"] for s in range(steps)]
+
+
+def flat(torch, tree):
+    from repro_torch.models import lm
+    return {"/".join(p): t.detach().double().cpu()
+            for p, t in lm.tree_leaves(tree)}
+
+
+def phase_reference_train(torch, device):
+    """Two train steps of a small llama and a small rwkv6 (head size 64)
+    on the card (kernels forward, plain gradients) and on the CPU (plain
+    versions), from the same weights and batches; the CPU runs once more
+    with the model in float64 to measure float32's own error."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    small = {"llama3.2-1b": ("flash_attention", dict(
+                 n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+                 vocab=512, head_dim=64)),
+             "rwkv6-1.6b": ("wkv6", dict(
+                 n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
+                 vocab=512))}
+    tol = TRAIN_REF_TOL
+    cpu = torch.device("cpu")
+    for name, (kernel, kw) in small.items():
+        arch = dataclasses.replace(configs.get(name), **kw)
+        params = lm.init_lm(arch, torch.float32,
+                            generator=torch.Generator().manual_seed(SEED),
+                            device="cpu")
+        batches = batches_for(arch, 2, 64, 2)
+        step = make_step(torch, arch, 2)
+        runs = {}
+        for tag, dev, dt in (("card", device, torch.float32),
+                             ("cpu", cpu, torch.float32),
+                             ("cpu64", cpu, torch.float64)):
+            # a copy: the step updates its parameters in place
+            p = lm.tree_map(lambda t: t.to(dev, dt, copy=True), params)
+            o = adamw_init(p)
+            mets = []
+            ops.reset_launch_counts()
+            for b in batches:
+                p, o, m = step(p, o, {"tokens": torch.as_tensor(b,
+                                                                device=dev)})
+                mets.append({k: float(v) for k, v in m.items()})
+            runs[tag] = (flat(torch, p), flat(torch, o["m"]), mets,
+                         ops.launch_counts()[kernel])
+        (pc, mc, metc, n_card), (pp, mp, metp, _), (_, m64, met64, _) = (
+            runs["card"], runs["cpu"], runs["cpu64"])
+        lr_sum = sum(m["lr"] for m in metp)
+        bad = []
+        for i, (a, b, c) in enumerate(zip(metc, metp, met64)):
+            for k in b:
+                lim = max(tol["metric"] * (1 + abs(b[k])),
+                          tol["noise"] * abs(b[k] - c[k]))
+                if not abs(a[k] - b[k]) <= lim:
+                    bad.append(f"step {i + 1} {k}: {a[k]} vs {b[k]}")
+        worst_m = worst_p = frac_p = 0.0
+        for k in mp:
+            scale = max(float(mp[k].abs().max()), 1e-30)
+            lim = max(tol["moment"] * scale,
+                      tol["noise"] * float((mp[k] - m64[k]).abs().max()))
+            err = float((mc[k] - mp[k]).abs().max())
+            worst_m = max(worst_m, err / lim)
+            if not err <= lim:
+                bad.append(f"moment {k}: {err} > {lim}")
+            d = (pc[k] - pp[k]).abs()
+            worst_p = max(worst_p, float(d.max()))
+            frac_p = max(frac_p, float((d > tol["param"]).double().mean()))
+        if worst_p > 2 * lr_sum + tol["param"] or frac_p > tol["param_frac"]:
+            bad.append(f"params: max diff {worst_p}, share beyond "
+                       f"{tol['param']} {frac_p}")
+        if n_card <= 0:
+            bad.append(f"the card run launched no {kernel}")
+        emit({"phase": f"reference-train-{name}", "steps": 2,
+              "loss_card": [m["loss"] for m in metc],
+              "loss_cpu": [m["loss"] for m in metp],
+              "moment_err_over_limit": worst_m, "param_max_diff": worst_p,
+              "param_share_beyond_tol": frac_p, "param_limit": 2 * lr_sum
+              + tol["param"], "launches_card": {kernel: n_card},
+              "tol": tol})
+        if bad:
+            fail(f"reference-train-{name}: " + "; ".join(bad[:5]))
+
+
+def train_full(torch, device, name, kernel, min_per_step, steps=4):
+    """Full-width, full-depth ``name`` in float32: ``steps`` AdamW steps at
+    batch 8 x 256 through ``make_train_step``, launch counts reset just
+    before and read just after; then one more step under the profiler."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import adamw_init
+    arch = configs.get(name)
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+    opt = adamw_init(params)
+    step = make_step(torch, arch, 100)
+    batches = [torch.as_tensor(b, device=device)
+               for b in batches_for(arch, 8, 256, steps + 1)]
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, mets, dead = [], [], []
+    ops.reset_launch_counts()
+    for s in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, {"tokens": batches[s]})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mets.append({k: float(v) for k, v in m.items()})
+        if s == 0:      # the first moment is 0.1 x the clipped gradient
+            dead = [k for k, t in flat(torch, opt["m"]).items()
+                    if not (bool(torch.isfinite(t).all())
+                            and float(t.abs().max()) > 0)]
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall, busy, top = busy_share(
+        torch, lambda: step(params, opt, {"tokens": batches[steps]}))
+    step_s = sum(times[1:]) / len(times[1:])
+    tokens = batches[0].numel()
+    res = {"phase": f"train-{name}", "params": n_params,
+           "batch": list(batches[0].shape), "steps": steps,
+           "step_ms": [t * 1e3 for t in times],
+           "step_ms_after_first": step_s * 1e3, "tok_s": tokens / step_s,
+           "loss": [m["loss"] for m in mets],
+           "nll": [m["nll"] for m in mets],
+           "grad_norm": [m["grad_norm"] for m in mets],
+           "max_memory_allocated_gb": peak / 1e9,
+           "launches": counts,
+           "launches_per_step": {k: v / steps for k, v in counts.items()},
+           "profiled_step_wall_s": wall, "profiled_step_device_busy_s": busy,
+           "device_busy_share": busy / wall,
+           "device_busy_share_unprofiled": busy / step_s,
+           "top_kernels": top, "leaves_without_gradient": dead}
+    emit(res)
+    if not all(math.isfinite(x) for x in res["loss"] + res["grad_norm"]):
+        fail(f"train-{name}: non-finite loss or gradient norm")
+    if dead:
+        fail(f"train-{name}: no finite nonzero gradient at step 1 for "
+             f"{dead}")
+    if counts[kernel] < min_per_step * steps:
+        fail(f"train-{name}: {counts[kernel]} launches of {kernel} in "
+             f"{steps} steps (want >= {min_per_step} per step)")
+    del params, opt
+    torch.cuda.empty_cache()
+    return counts[kernel]
+
+
+def phase_train(torch, device):
+    counts = {"flash_attention": train_full(
+                  torch, device, "llama3.2-1b", "flash_attention", 16),
+              "wkv6": train_full(torch, device, "rwkv6-1.6b", "wkv6", 24)}
+    from repro_torch.launch import train
+    for name in ("llama3.2-1b", "rwkv6-1.6b"):
+        t0 = time.perf_counter()
+        # the published width (head size 64, which the kernels take) at
+        # depth 2
+        hist = train.main(["--arch", name, "--width", "2048", "--depth",
+                           "2", "--vocab", "512", "--steps", "3", "--batch",
+                           "4", "--seq", "64", "--ckpt-every", "0",
+                           "--log-every", "1"])
+        ok = (len(hist) == 3
+              and all(math.isfinite(h["loss"]) for h in hist))
+        emit({"phase": f"train-cli-{name}", "seconds":
+              time.perf_counter() - t0, "loss": [h["loss"] for h in hist]})
+        if not ok:
+            fail(f"train-cli-{name}: {hist}")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -522,8 +875,16 @@ def main() -> int:
                                           torch.float32)),
         ("flash-bf16", lambda: phase_flash(torch, timer, device,
                                            "flash-bf16", torch.bfloat16)),
+        ("flash-train-f32", lambda: phase_flash_train(torch, timer, device)),
+        ("wkv6-f32", lambda: phase_wkv6(torch, timer, device, "wkv6-f32",
+                                        torch.float32)),
+        ("wkv6-bf16", lambda: phase_wkv6(torch, timer, device, "wkv6-bf16",
+                                         torch.bfloat16)),
+        ("grads", lambda: phase_grads(torch, device)),
         ("reference", lambda: phase_reference(torch, device)),
+        ("reference-train", lambda: phase_reference_train(torch, device)),
         ("serve", lambda: phase_serve(torch, device)),
+        ("train", lambda: phase_train(torch, device)),
     ]
     counts = {}
     for name, fn in steps:
@@ -532,11 +893,13 @@ def main() -> int:
         except Exception:                 # record, then go on to the next
             fail(f"{name}: {traceback.format_exc()}")
             continue
-        if name == "serve":
-            counts = out
+        if name in ("serve", "train"):      # launch counts of the main path
+            counts[name] = out
         elif out is not None:
             kern[name] = out
 
+    # each kernel's launches in the main-path runs it is on: the serve
+    # modes (counts of the first mode that uses it) and the train steps
     rows = [("paged_decode_attention", "paged-f32",
              "src/repro_torch/csrc/paged_decode_attention.cu",
              "src/repro/kernels/paged_decode_attention.py:37"),
@@ -545,13 +908,18 @@ def main() -> int:
              "src/repro/kernels/paged_decode_attention.py:76"),
             ("flash_attention", "flash-f32",
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:33")]
+             "src/repro/kernels/flash_attention.py:33"),
+            ("wkv6", "wkv6-f32", "src/repro_torch/csrc/rwkv6_scan.cu",
+             "src/repro/kernels/rwkv6_scan.py:28")]
     kernels = []
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
+        by_path = {path: c[name] for path, c in counts.items()
+                   if name in c}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
-                        "launches": counts.get(name, 0),
+                        "launches": sum(by_path.values()),
+                        "launches_by_path": by_path,
                         "max_abs_err": k.get("max_abs_err"),
                         "ms": k.get("kernel_ms"),
                         "plain_ms": k.get("plain_ms"),

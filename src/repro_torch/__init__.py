@@ -5,9 +5,12 @@ names, public function names and array layouts, so each function here can
 be held against its counterpart on the same numpy inputs.  It imports
 ``torch`` and nothing of ``jax`` or ``repro``.
 
-Ported so far (slice 1): serving a dense decoder-only LM — configs,
-model layers and stack, the paged KV pool with int8 blocks, chunked
-prefill riding the mixed step, copy-on-write prefix caching, the serve
-engine and its command-line launcher.  The attention kernels on that
-path are CUDA C++ for ``sm_90a`` under ``csrc/``.
+Ported so far: serving a dense decoder-only LM (configs, model layers
+and stack, the paged KV pool with int8 blocks, chunked prefill riding the
+mixed step, copy-on-write prefix caching, the serve engine and its
+launcher), and training dense and RWKV6 LMs (loss, AdamW, the train step
+with microbatches and remat, synthetic data, checkpoints that cross with
+the reference, the train command).  The kernels on those paths (flash and
+paged-decode attention, the WKV6 recurrence) are CUDA C++ for ``sm_90a``
+under ``csrc/``.
 """

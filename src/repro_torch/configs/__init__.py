@@ -1,16 +1,18 @@
-"""Architecture configs the port serves (``--arch <id>``).
+"""Architecture configs the port runs (``--arch <id>``).
 
-Copies of the four dense configs of ``repro.configs``: each module
-defines ``ARCH`` (the published config) and ``reduced()`` (a small
-same-family config for CPU tests).  The other ids of the reference exist
-there and raise here, naming the ROADMAP slice that brings them.
+Copies of ``repro.configs``' four dense configs (trained and served) and
+of ``rwkv6_1b6`` (trained): each module defines ``ARCH`` (the published
+config) and ``reduced()`` (a small same-family config for CPU tests).
+The other ids of the reference exist there and raise here, naming the
+ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
 import importlib
 
-ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b"]
+ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b",
+             "rwkv6_1b6"]
 
 # assignment ids -> module names (the reference's table)
 ALIASES = {
@@ -30,7 +32,6 @@ ALIASES = {
 LATER = {
     "phi3_5_moe_42b": "the MoE slice",
     "olmoe_1b_7b": "the MoE slice",
-    "rwkv6_1b6": "the RWKV6 slice",
     "jamba_1_5_large": "the Mamba slice",
     "internvl2_76b": "the VLM / encoder-decoder slice",
     "seamless_m4t_v2": "the VLM / encoder-decoder slice",
@@ -44,7 +45,7 @@ def _module(name: str):
             f"arch {name!r} is not ported yet: it arrives with "
             f"{LATER[key]} (see ROADMAP.md)")
     if key not in ALL_ARCHS:
-        raise ValueError(f"unknown arch {name!r}; the port serves "
+        raise ValueError(f"unknown arch {name!r}; the port runs "
                          f"{ALL_ARCHS}")
     return importlib.import_module(f"repro_torch.configs.{key}")
 

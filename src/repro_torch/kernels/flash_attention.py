@@ -6,6 +6,10 @@ k/v ``(B, KH, T, D)`` with any S and T >= S, causal or full, head dim 64
 or 128, float32 or bfloat16.  Unlike the TPU kernel it has no alignment
 requirement, so no shape falls back to another path.  Its plain version
 is :func:`repro_torch.kernels.ref.attention_ref`.
+
+Like the reference's ``with_reference_vjp``, the kernel is forward-only:
+:class:`FlashAttention` runs it forward and, in the backward pass,
+differentiates the plain version at the saved inputs.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, ref
 
 #: launches since the last reset; the wrapper adds one where it launches
 launches = {"flash_attention": 0}
@@ -58,3 +62,33 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     build.check(err, "flash_attention")
     launches["flash_attention"] += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the gradient of the plain
+    :func:`~repro_torch.kernels.ref.attention_ref` at the saved inputs
+    (the counterpart of the reference's VJP through
+    ``flash_attention_xla``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention_cuda(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.attention_ref(*args, causal=ctx.causal)
+        grads = torch.autograd.grad(out, args, g)
+        return (*grads, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True):
+    """The kernel, differentiable when autograd needs it: through
+    :class:`FlashAttention` when a gradient is being recorded, else
+    launched directly (the serve path)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal)
+    return flash_attention_cuda(q, k, v, causal=causal)

@@ -4,6 +4,9 @@
 The implementation is chosen by the tensor's device alone: a CUDA tensor
 goes to the hand-written kernel (or the call raises), a CPU tensor goes
 to the plain PyTorch version.  Nothing falls back from one to the other.
+Where autograd records a gradient, a CUDA call goes through the kernel's
+``autograd.Function`` (forward the kernel, backward the gradient of the
+plain version), so no caller gets an output detached from its inputs.
 
 The mixed-step form of the paged op (5-d q, one kv_len per query token)
 is plain torch on every device, as its counterpart is XLA in the
@@ -18,8 +21,9 @@ from . import flash_attention as _flash
 from . import mha_stream
 from . import paged_decode_attention as _paged
 from . import ref
+from . import rwkv6_scan as _wkv6
 
-_COUNTERS = (_flash.launches, _paged.launches)
+_COUNTERS = (_flash.launches, _paged.launches, _wkv6.launches)
 
 
 def launch_counts() -> dict[str, int]:
@@ -51,20 +55,21 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q=None,
     ``block_k`` are accepted for signature parity; the CUDA kernel's
     tiles are fixed."""
     if _route(q, "flash_attention"):
-        return _flash.flash_attention_cuda(q, k, v, causal=causal)
+        return _flash.flash_attention(q, k, v, causal=causal)
     return ref.attention_ref(q, k, v, causal=causal)
 
 
 def decode_attention(q, k, v, kv_len, *, block_k=None):
     """Dense-cache decode.  The mixed-step form (q (B, KH, G, T, D),
     kv_len (B, T)) streams in plain torch; the single-token form's kernel
-    arrives with slice 2 (ROADMAP.md)."""
+    arrives with the dense-cache decode slice (ROADMAP.md)."""
     if q.ndim == 5:
         return mha_stream.mixed_decode_attention(q, k, v, kv_len,
                                                  block_k=block_k)
     raise NotImplementedError(
         "single-token decode over a dense cache (decode_attention) is "
-        "ported in slice 2; serve with the paged cache (kv_block_size > 0)")
+        "ported in the dense-cache decode slice (ROADMAP.md); serve with "
+        "the paged cache (kv_block_size > 0)")
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
@@ -98,3 +103,18 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     return ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_len, k_scale=k_scale,
                                           v_scale=v_scale)
+
+
+def wkv6(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
+         return_state: bool = False):
+    """RWKV6 recurrence; r/k/v/w: (B, H, T, N); u: (H, N).  Returns out,
+    plus the final (B, H, N, N) float32 state when ``return_state``.  The
+    kernel takes the stateless form only (as the reference's does); the
+    stateful form runs the plain version on every device."""
+    if initial_state is not None or return_state:
+        return ref.wkv6_scan(r, k, v, w, u, chunk=chunk,
+                             initial_state=initial_state,
+                             return_state=return_state)
+    if _route(r, "wkv6"):
+        return _wkv6.wkv6(r, k, v, w, u, chunk=chunk)
+    return ref.wkv6_scan(r, k, v, w, u, chunk=chunk)

@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the attention kernels: the counterparts of
-``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``).
+"""Plain PyTorch versions of the kernels: the counterparts of
+``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``,
+``wkv6_ref``, ``wkv6_scan``).
 
-They are what a CPU tensor runs, and what ``chip_smoke.py`` holds each
-CUDA kernel against on the card.  Softmax is taken in float32 over the
-whole row, with masked scores at -1e30 as in the reference.
+They are what a CPU tensor runs, what ``chip_smoke.py`` holds each CUDA
+kernel against on the card, and what the kernels' backward passes
+differentiate.  Softmax is taken in float32 over the whole row, with
+masked scores at -1e30 as in the reference.
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from repro_torch.core.scan import remat_time_scan
 
 NEG_INF = -1e30
 
@@ -124,3 +128,48 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len, *,
         return out.reshape(B, KH, G, T, D)
     out = decode_attention_ref(q.reshape(B, KH * G, D), k, v, kv_len)
     return out.reshape(B, KH, G, D)
+
+
+def _wkv6_step(uf):
+    def step(S, xs):
+        rt, kt, vt, wt = (a.float() for a in xs)              # (B, H, N)
+        kv = kt[..., :, None] * vt[..., None, :]              # (B, H, N, N)
+        o = torch.einsum("bhi,bhij->bhj", rt, S + uf[None, :, :, None] * kv)
+        return wt[..., :, None] * S + kv, o
+    return step
+
+
+def wkv6_ref(r, k, v, w, u, state=None):
+    """RWKV6 recurrence oracle in the model layout.
+
+    r/k/v/w: (B, T, H, N); u: (H, N); state: (B, H, N, N) or None.
+    Returns (out (B, T, H, N) float32, final state).
+
+      out_t = r_t . (S + u * (k_t x v_t));  S <- diag(w_t) S + k_t x v_t
+    """
+    B, T, H, N = r.shape
+    if state is None:
+        state = torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device)
+    xs = tuple(a.transpose(0, 1) for a in (r, k, v, w))      # (T, B, H, N)
+    S, out = remat_time_scan(_wkv6_step(u.float()), state, xs, chunk=T)
+    return out.transpose(0, 1), S
+
+
+def wkv6_scan(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
+              return_state: bool = False):
+    """WKV6 recurrence in the kernel layout: r/k/v/w (B, H, T, N); u (H, N);
+    state (B, H, N, N) float32.  The plain version of the CUDA kernel
+    (``csrc/rwkv6_scan.cu``) and the function its backward differentiates.
+
+    A Python time loop in float32, checkpointed per chunk of ``chunk``
+    steps (:func:`repro_torch.core.scan.remat_time_scan`).  Returns out
+    (B, H, T, N) in r's dtype, plus the final state when ``return_state``.
+    """
+    B, H, T, N = r.shape
+    S0 = (initial_state if initial_state is not None
+          else torch.zeros(B, H, N, N, dtype=torch.float32, device=r.device))
+    tm = lambda a: a.permute(2, 0, 1, 3)                      # (T, B, H, N)
+    Sn, out = remat_time_scan(_wkv6_step(u.float()), S0,
+                              (tm(r), tm(k), tm(v), tm(w)), chunk=chunk)
+    out = out.permute(1, 2, 0, 3).to(r.dtype)                 # (B, H, T, N)
+    return (out, Sn) if return_state else out

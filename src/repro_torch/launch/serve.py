@@ -15,7 +15,6 @@ PyTorch versions on the CPU; without it the command needs a GPU.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -23,23 +22,9 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
+from repro_torch.launch.train import reduced_arch
 from repro_torch.models import lm
 from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
-
-
-def reduced_arch(arch, width: int, depth: int, vocab: int):
-    """Shrink ``arch`` (0 keeps a dimension), as the reference's
-    ``repro.launch.train.reduced_arch`` does for dense archs."""
-    kw = {}
-    if width:
-        kw.update(d_model=width, d_ff=width * 4, head_dim=0)
-        if width % arch.n_heads != 0:
-            kw.update(n_heads=8, n_kv_heads=min(8, arch.n_kv_heads))
-    if depth:
-        kw["n_layers"] = max(arch.period, (depth // arch.period) * arch.period)
-    if vocab:
-        kw["vocab"] = vocab
-    return dataclasses.replace(arch, **kw) if kw else arch
 
 
 def make_requests(vocab: int, n: int, prompt_len: int, gen: int,

@@ -1,0 +1,191 @@
+"""Training command of the port: the counterpart of
+``repro.launch.train``, on one GPU.
+
+Builds the train step, streams the synthetic pipeline, checkpoints
+periodically and resumes after failures (``--resume`` restores the newest
+complete checkpoint and continues the data stream deterministically from
+the restored step).
+
+    python -m repro_torch.launch.train --arch llama3.2-1b \
+        --steps 200 --batch 8 --seq 256 --width 256 --depth 8
+
+Reduced dims (``--width/--depth/--vocab``) scale the assigned arch down;
+omit them for the published config.  The flags and defaults are the
+reference's, plus ``--device`` (``cpu`` runs the plain PyTorch versions
+on the CPU; without it the command needs a GPU).  The default checkpoint
+directory is ``repro_ckpt`` under the temporary directory (``TMPDIR``).
+
+One GPU has a one-device mesh, on which every strategy the reference
+searches degrades to uniform (it says so, as the reference does).  The
+flags that need the plan search, the profiler or the kernel dispatcher
+(``--plan``, ``--save-plan``, ``--device-profile``,
+``--pipeline-stages`` other than 0/1, ``--kernel-backend``,
+``--autotune-cache-dir``) raise, naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from repro_torch import configs
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.data import make_dataset
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+from repro_torch.models.arch import ShapeSpec
+from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.train import TrainConfig, make_train_step
+
+
+def reduced_arch(arch, width, depth, vocab, experts=0):
+    """Shrink ``arch`` (0 keeps a dimension), as the reference's
+    ``repro.launch.train.reduced_arch`` does."""
+    kw = {}
+    if width:
+        kw.update(d_model=width, d_ff=width * 4,
+                  moe_d_ff=width * 4 if arch.moe_d_ff else 0,
+                  head_dim=0)
+        if width % arch.n_heads != 0:
+            kw.update(n_heads=8, n_kv_heads=min(8, arch.n_kv_heads))
+    if depth:
+        period = arch.period
+        kw["n_layers"] = max(period, (depth // period) * period)
+        if arch.enc_layers:
+            kw["enc_layers"] = depth
+    if vocab:
+        kw["vocab"] = vocab
+    if experts and arch.n_experts:
+        kw.update(n_experts=experts, top_k=min(arch.top_k, experts))
+    return dataclasses.replace(arch, **kw) if kw else arch
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--width", type=int, default=0)
+    ap.add_argument("--depth", type=int, default=0)
+    ap.add_argument("--vocab", type=int, default=0)
+    ap.add_argument("--experts", type=int, default=0)
+    ap.add_argument("--strategy", default="search",
+                    choices=["search", "searched", "data", "model", "owt",
+                             "uniform", "none"])
+    ap.add_argument("--pipeline-stages", type=int, default=0,
+                    help="pipeline the train phase over this many stages "
+                         "(plans / multi-GPU slice); 0/1 = no pipelining")
+    ap.add_argument("--microbatches", type=int, default=8,
+                    help="1F1B microbatch count M when pipelining")
+    ap.add_argument("--plan", default="",
+                    help="load a ParallelPlan JSON (plans slice)")
+    ap.add_argument("--save-plan", default="",
+                    help="write the plan to this JSON path (plans slice)")
+    ap.add_argument("--ckpt-dir",
+                    default=str(Path(tempfile.gettempdir()) / "repro_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default="")
+    ap.add_argument("--kernel-backend", default="",
+                    help="force a kernel backend (dispatcher slice)")
+    ap.add_argument("--autotune-cache-dir", default="",
+                    help="block-size autotune cache (dispatcher slice)")
+    ap.add_argument("--device-profile", default="",
+                    help="measured DeviceProfile JSON (profiling slice)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def _refuse_later_flags(args) -> None:
+    later = [
+        (args.plan or args.save_plan, "--plan/--save-plan",
+         "the plans / multi-GPU slice"),
+        (args.pipeline_stages not in (0, 1), "--pipeline-stages",
+         "the plans / multi-GPU slice (1F1B stages)"),
+        (args.device_profile, "--device-profile",
+         "the H100 profiling slice"),
+        (args.kernel_backend or args.autotune_cache_dir,
+         "--kernel-backend/--autotune-cache-dir",
+         "the dispatcher-overrides slice"),
+    ]
+    for given, flag, slice_ in later:
+        if given:
+            raise NotImplementedError(
+                f"{flag} is not ported yet: it arrives with {slice_} "
+                f"(ROADMAP.md)")
+
+
+def main(argv=None) -> list[dict]:
+    """Train; returns the logged metrics (one dict per logged step)."""
+    args = parser().parse_args(argv)
+    _refuse_later_flags(args)
+    device = resolve_device(args.device)
+
+    arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
+                        args.vocab, args.experts)
+    shape = ShapeSpec("custom", args.seq, args.batch, "train")
+    name = {"search": "searched", "none": "uniform"}.get(
+        args.strategy, args.strategy)
+    if name != "uniform":
+        print(f"plan: single device — strategy {name!r} degrades to "
+              f"uniform")
+
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20,
+                          total_steps=args.steps)
+    tcfg = TrainConfig(optimizer=opt_cfg, q_chunk=256, time_chunk=32,
+                       remat=True)
+    step_fn = make_train_step(arch, None, tcfg)
+    ds = make_dataset(arch, shape)
+
+    ckpt = CheckpointManager(args.ckpt_dir)
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(0), device=device)
+    opt_state = adamw_init(params)
+    start_step = 0
+    if args.resume:
+        like = {"params": params, "opt": opt_state}
+        step, state = ckpt.restore_latest(like)
+        if step is not None:
+            params, opt_state = state["params"], state["opt"]
+            start_step = step
+            print(f"resumed from step {step}")
+
+    history = []
+    t0 = time.time()
+    for step in range(start_step, args.steps):
+        batch = {"tokens": torch.as_tensor(ds.batch_at(step)["tokens"],
+                                           device=device)}
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            dt = time.time() - t0
+            tok_s = shape.tokens * (step - start_step + 1) / max(dt, 1e-9)
+            print(f"step {step:5d} loss={m['loss']:.4f} "
+                  f"nll={m['nll']:.4f} acc={m['accuracy']:.3f} "
+                  f"gnorm={m['grad_norm']:.2f} tok/s={tok_s:.0f}")
+            history.append({"step": step, **m})
+        if args.ckpt_every and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt": opt_state})
+    if args.ckpt_every:
+        ckpt.save(args.steps, {"params": params, "opt": opt_state})
+    if args.metrics_out:
+        Path(args.metrics_out).write_text(json.dumps(history, indent=1))
+    if history:
+        first, last = history[0]["nll"], history[-1]["nll"]
+        print(f"nll {first:.4f} -> {last:.4f} "
+              f"({'LEARNED' if last < first - 0.2 else 'check'})")
+    return history
+
+
+if __name__ == "__main__":
+    main()

@@ -115,8 +115,8 @@ def _scatter_rows(pool, phys, rows):
 
 def _later(what: str):
     return NotImplementedError(
-        f"{what} is ported in slice 2 (ROADMAP.md); this slice serves "
-        f"through the paged KV cache")
+        f"{what} is ported in the dense-cache decode slice (ROADMAP.md); "
+        f"the port serves through the paged KV cache")
 
 
 def attention(p: dict, x, arch, *, positions, causal: bool = True,
@@ -139,7 +139,7 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
       (paged).
 
     Dense single-token decode and mid-sequence continuation raise
-    ``NotImplementedError`` (slice 2).  Returns (out (B, S, H, hd), cache).
+    ``NotImplementedError`` (the dense-cache decode slice).  Returns (out (B, S, H, hd), cache).
     """
     B, S, _ = x.shape
     KH, H, hd = arch.n_kv_heads, arch.n_heads, arch.hd

@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly, dense path: the counterpart of
-``repro.models.lm`` for the ``attn`` + dense SwiGLU pattern.
+"""Decoder-only LM assembly: the counterpart of ``repro.models.lm`` for
+the dense (``attn`` + SwiGLU) and RWKV6 (``rwkv`` time mix + channel
+mix) patterns.
 
 Parameters are a dict tree with every per-layer tensor stacked over
 pattern units (leading dim ``n_units``), exactly the reference's layout;
@@ -8,6 +9,8 @@ in the reference's layouts too, and are updated in place.
 
 Entry points:
   init_lm(arch, dtype, generator=, device=)      -> params
+  forward(params, batch, arch[, plan])           -> (logits, aux)
+  loss_fn(params, batch, arch[, plan])           -> (loss, metrics)
   init_cache(arch, batch, max_len, dtype, device=) -> cache
   init_paged_cache(arch, num_blocks, block_size, batch, dtype, kv_quant=,
                    device=)                      -> cache
@@ -17,25 +20,29 @@ Entry points:
   step(params, tokens, cache, pos, arch[, q_lens, block_tables])
                                                  -> (logits, cache)
 
-Non-``attn`` mixers, MoE FFNs and modality frontends raise
-``NotImplementedError`` naming the slice that brings them.
+``plan`` (a searched ``ModelPlan`` in the reference) only places
+tensors across devices; on one device it changes no arithmetic, and the
+port accepts it for signature parity.  Mamba mixers, MoE FFNs and
+modality frontends raise ``NotImplementedError`` naming the slice that
+brings them; so does serving an RWKV6 model.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import recurrent as Rc
 from .arch import ArchConfig
 
-_LATER = {"mamba": "the Mamba slice", "rwkv": "the RWKV6 slice",
-          "moe": "the MoE slice"}
+_LATER = {"mamba": "the Mamba slice", "moe": "the MoE slice"}
 
 
-def check_dense(arch: ArchConfig) -> None:
-    """Raise for anything beyond the dense decoder-only LM."""
+def check_arch(arch: ArchConfig) -> None:
+    """Raise for anything beyond the dense and RWKV6 decoder-only LMs."""
     for spec in arch.pattern:
         for kind in (spec.mixer, spec.ffn):
             if kind in _LATER:
@@ -46,6 +53,17 @@ def check_dense(arch: ArchConfig) -> None:
         raise NotImplementedError(
             f"{arch.name}: frontends and encoder-decoder models arrive "
             f"with the VLM / encoder-decoder slice (ROADMAP.md)")
+
+
+def check_servable(arch: ArchConfig) -> None:
+    """Raise for anything the serve path does not take: beyond
+    :func:`check_arch`, RWKV6 models (their carried-state caches)."""
+    check_arch(arch)
+    if any(spec.mixer == "rwkv" for spec in arch.pattern):
+        raise NotImplementedError(
+            f"{arch.name}: serving RWKV6 models (recurrent-state caches) "
+            f"arrives with the RWKV6 serve slice (ROADMAP.md); this port "
+            f"trains them")
 
 
 def tree_map(fn, tree):
@@ -74,18 +92,21 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
     from the same seed; parity tests move the reference's weights across
     with :mod:`repro_torch.bridge` instead.  ``device=None`` means
     ``cuda`` (see :func:`repro_torch.device.resolve_device`)."""
-    check_dense(arch)
+    check_arch(arch)
     device = resolve_device(device)
     n = (arch.n_units,)
     kw = dict(generator=generator, device=device)
     unit = {}
-    for j, _ in enumerate(arch.pattern):
-        unit[f"l{j}"] = {
-            "ln1": L.init_norm(arch, dtype, lead=n, device=device),
-            "ln2": L.init_norm(arch, dtype, lead=n, device=device),
-            "attn": L.init_attention(arch, dtype, lead=n, **kw),
-            "mlp": L.init_mlp(arch, dtype, lead=n, **kw),
-        }
+    for j, spec in enumerate(arch.pattern):
+        lp = {"ln1": L.init_norm(arch, dtype, lead=n, device=device),
+              "ln2": L.init_norm(arch, dtype, lead=n, device=device)}
+        if spec.mixer == "rwkv":
+            lp["tmix"] = Rc.init_rwkv_tmix(arch, dtype, lead=n, **kw)
+            lp["cmix"] = Rc.init_rwkv_cmix(arch, dtype, lead=n, **kw)
+        else:
+            lp["attn"] = L.init_attention(arch, dtype, lead=n, **kw)
+            lp["mlp"] = L.init_mlp(arch, dtype, lead=n, **kw)
+        unit[f"l{j}"] = lp
     return {
         "embed": L.init_embed(arch, dtype, **kw),
         "stack": unit,
@@ -99,13 +120,25 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
 # --------------------------------------------------------------------------- #
 def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
                  causal=True, cache=None, cache_pos=None, block_tables=None,
-                 q_lens=None):
+                 q_lens=None, time_chunk=64):
     """Returns (h, new_cache) for one pattern unit."""
     new_cache: dict = {}
-    for j, _ in enumerate(arch.pattern):
+    for j, spec in enumerate(arch.pattern):
         lp = unit_params[f"l{j}"]
         lc = cache.get(f"l{j}") if cache is not None else None
         hn = L.apply_norm(lp["ln1"], h)
+        if spec.mixer == "rwkv":
+            # the reference's inner remat: during the unit's backward
+            # recompute only one time mix's internals are live at a time
+            h = h + checkpoint(
+                lambda p_, h_: Rc.rwkv_tmix(p_, h_, arch,
+                                            chunk=time_chunk)[0],
+                lp["tmix"], hn, use_reentrant=False,
+                preserve_rng_state=False)
+            hn = L.apply_norm(lp["ln2"], h)
+            h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch)[0]
+            new_cache[f"l{j}"] = {}
+            continue
         a, kvc = L.attention(
             lp["attn"], hn, arch, positions=positions, causal=causal,
             kv_cache=(lc or {}).get("kv"), cache_pos=cache_pos,
@@ -118,19 +151,125 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
 
 
 def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
-              cache=None, cache_pos=None, block_tables=None, q_lens=None):
+              cache=None, cache_pos=None, block_tables=None, q_lens=None,
+              time_chunk=64, remat=False):
     """Walk the units in order; returns (h, cache).  Unit u's parameters
     and cache are the views ``leaf[u]`` of the stacked trees, so cache
-    writes land in the stacked cache itself."""
+    writes land in the stacked cache itself.
+
+    ``remat`` (training, no cache) runs each unit under
+    ``torch.utils.checkpoint``: the backward pass keeps only each unit's
+    input and recomputes the rest, the reference's ``"nothing"`` remat
+    policy."""
     for u in range(arch.n_units):
         unit_params = tree_map(lambda a: a[u], stack_params)
         unit_cache = (tree_map(lambda a: a[u], cache)
                       if cache is not None else None)
-        h, _ = unit_forward(
-            h, unit_params, arch, positions=positions, causal=causal,
-            cache=unit_cache, cache_pos=cache_pos,
-            block_tables=block_tables, q_lens=q_lens)
+        kw = dict(positions=positions, causal=causal, cache=unit_cache,
+                  cache_pos=cache_pos, block_tables=block_tables,
+                  q_lens=q_lens, time_chunk=time_chunk)
+        if remat and cache is None:
+            h = checkpoint(lambda h_, p_: unit_forward(h_, p_, arch, **kw)[0],
+                           h, unit_params, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            h, _ = unit_forward(h, unit_params, arch, **kw)
     return h, cache
+
+
+# --------------------------------------------------------------------------- #
+# full forward / loss
+# --------------------------------------------------------------------------- #
+def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
+                  q_chunk=512, time_chunk=64, remat=True,
+                  remat_policy="nothing"):
+    """Embed + layer stack + final norm -> ((B, S, D), aux_loss).
+    ``q_chunk`` is accepted for signature parity (the attention kernel
+    does not chunk queries)."""
+    check_arch(arch)
+    if remat_policy != "nothing":
+        raise NotImplementedError(
+            f"remat policy {remat_policy!r}: the port rematerializes whole "
+            f"units (torch.utils.checkpoint), the reference's 'nothing' "
+            f"policy; the dot-saving policies have no counterpart yet")
+    tokens = batch["tokens"]
+    h = L.embed(params["embed"], tokens)
+    positions = torch.arange(h.shape[1], device=h.device)
+    h, _ = run_stack(h, params["stack"], arch, positions=positions,
+                     causal=True, time_chunk=time_chunk, remat=remat)
+    h = L.apply_norm(params["final_norm"], h)
+    # dense and RWKV layers add no auxiliary loss (MoE's arrives with it)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def forward(params, batch: dict, arch: ArchConfig, plan=None, *,
+            q_chunk=512, time_chunk=64, remat=True, remat_policy="nothing"):
+    """batch: {"tokens": (B, S)} -> (logits (B, S, V), aux_loss)."""
+    h, aux = hidden_states(params, batch, arch, plan, q_chunk=q_chunk,
+                           time_chunk=time_chunk, remat=remat,
+                           remat_policy=remat_policy)
+    return L.lm_head(params["lm_head"], h, params["embed"], arch), aux
+
+
+def softmax_xent(logits, labels, z_loss_coef: float = 1e-4):
+    """Causal-LM cross entropy in float32 with z-loss; returns (loss,
+    metrics)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    loss = nll.mean() + z_loss_coef * lse.square().mean()
+    acc = (lf.argmax(-1) == labels).float().mean()
+    return loss, {"nll": nll.mean(), "accuracy": acc}
+
+
+def _xent_sums(hc, lc, w):
+    lf = (hc @ w).float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
+    hit = (lf.argmax(-1) == lc).float()
+    return (lse - gold).sum(), lse.square().sum(), hit.sum()
+
+
+def chunked_lm_loss(h, labels, params, arch: ArchConfig, plan=None, *,
+                    chunk: int = 512, z_loss_coef: float = 1e-4):
+    """Causal-LM loss with the logits made and consumed in sequence chunks,
+    each under ``torch.utils.checkpoint`` (recomputed in the backward
+    pass), so the whole (B, T, V) tensor never exists at once.
+
+    h: (B, T, D) hidden states; labels: (B, T) next-token targets.
+    """
+    B, T, _ = h.shape
+    w = (params["embed"]["table"].T if arch.tie_embeddings
+         else params["lm_head"]["w"])
+    n = T // chunk if (T % chunk == 0 and T > chunk) else 1
+    c = T // n
+    nll = z = acc = 0.0
+    for i in range(n):
+        sl = slice(i * c, (i + 1) * c)
+        dn, dz, da = checkpoint(_xent_sums, h[:, sl], labels[:, sl], w,
+                                use_reentrant=False, preserve_rng_state=False)
+        nll, z, acc = nll + dn, z + dz, acc + da
+    count = B * T
+    loss = nll / count + z_loss_coef * z / count
+    return loss, {"nll": nll / count, "accuracy": acc / count}
+
+
+def loss_fn(params, batch: dict, arch: ArchConfig, plan=None, *,
+            aux_coef: float = 0.01, q_chunk=512, time_chunk=64, remat=True,
+            loss_chunk=512, remat_policy="nothing"):
+    """Next-token loss of ``batch["tokens"]`` (B, S); returns (loss,
+    {"loss", "nll", "accuracy", "aux"})."""
+    h, aux = hidden_states(params, batch, arch, plan, q_chunk=q_chunk,
+                           time_chunk=time_chunk, remat=remat,
+                           remat_policy=remat_policy)
+    tokens = batch["tokens"]
+    loss, metrics = chunked_lm_loss(h[:, :-1, :], tokens[:, 1:], params,
+                                    arch, plan, chunk=loss_chunk)
+    loss = loss + aux_coef * aux
+    metrics["aux"] = aux
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def _head(params, h, arch):
@@ -143,7 +282,7 @@ def _head(params, h, arch):
 # --------------------------------------------------------------------------- #
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
-    check_dense(arch)
+    check_servable(arch)
     device = resolve_device(device)
     shape = (arch.n_units, batch, max_len, arch.n_kv_heads, arch.hd)
     return {f"l{j}": {"kv": {
@@ -163,7 +302,7 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
     is kept for signature parity: a dense arch has no slot-dense state."""
     if kv_quant not in (None, "none", "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
-    check_dense(arch)
+    check_servable(arch)
     device = resolve_device(device)
     quant = kv_quant == "int8"
     shape = (arch.n_units, num_blocks, block_size, arch.n_kv_heads, arch.hd)
@@ -184,6 +323,7 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
 def prefill(params, batch: dict, cache: dict, arch: ArchConfig):
     """Process the prompt (``batch["tokens"]`` (B, S)), filling ``cache``
     from position 0; returns (last-position logits (B, 1, V), cache)."""
+    check_servable(arch)
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -211,6 +351,7 @@ def decode_step(params, token, cache: dict, pos, arch: ArchConfig, *,
     """One decode step.  token: (B, 1); pos: scalar or (B,) (see
     :func:`decode_positions`).  With ``block_tables`` the KV leaves are
     the paged pool and ``pos`` must be (B,)."""
+    check_servable(arch)
     h = L.embed(params["embed"], token)
     positions, cache_pos = decode_positions(pos, token.shape[0], token.device)
     if block_tables is not None and cache_pos.ndim != 1:
@@ -229,6 +370,7 @@ def step(params, tokens, cache: dict, pos, arch: ArchConfig, *,
     up to T, idle slots 0).  ``q_lens=None`` means every row advances all
     T tokens.  Returns (logits (B, T, V), cache); row b's next-token
     logits sit at ``logits[b, q_lens[b] - 1]``, the rest is garbage."""
+    check_servable(arch)
     B, T = tokens.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.ndim == 0:

@@ -23,7 +23,8 @@ class ServeConfig:
     * ``policy`` — ``"continuous"`` (admit into any free slot mid-decode)
       or ``"static"`` (lockstep batches, the oracle).
     * ``kv_block_size`` — tokens per paged-KV block.  The dense per-slot
-      layout (0 / None) needs the dense decode kernel of slice 2.
+      layout (0 / None) needs the dense decode kernel of the dense-cache
+      decode slice (ROADMAP.md).
     * ``kv_pool_blocks`` — usable blocks in the pool (None = dense-
       equivalent capacity ``max_batch * ceil(max_len / block)``).
     * ``prefill_chunk_tokens`` — per-step prompt-token budget of the

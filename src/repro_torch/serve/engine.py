@@ -17,7 +17,7 @@ counterpart of ``repro.serve.engine``.
 
 The cache is updated in place (the reference donated it to jit).  The
 dense per-slot layout (``kv_block_size=0``) needs the dense decode
-kernel, which arrives with slice 2.
+kernel, which arrives with the dense-cache decode slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -110,11 +110,12 @@ class ServeEngine:
     """
 
     def __init__(self, params, arch: ArchConfig, config: ServeConfig):
-        lm.check_dense(arch)
+        lm.check_servable(arch)
         if not config.kv_block_size:
             raise NotImplementedError(
                 "the dense per-slot KV layout (kv_block_size=0) needs the "
-                "dense decode kernel, ported in slice 2 (ROADMAP.md)")
+                "dense decode kernel, ported in the dense-cache decode slice "
+                "(ROADMAP.md)")
         self.params = params
         self.arch = arch
         self.config = config

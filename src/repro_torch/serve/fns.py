@@ -29,7 +29,7 @@ def make_serve_fns(arch: ArchConfig):
     whole chunk budget to one slot, so exactly one row has
     ``q_lens == T`` and ``argmax(q_lens)`` finds it.
     """
-    lm.check_dense(arch)
+    lm.check_servable(arch)
 
     def prefill(params, batch, cache):
         return lm.prefill(params, batch, cache, arch)
@@ -48,7 +48,7 @@ def make_serve_fns(arch: ArchConfig):
         pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
         # 1. (B, 1) decode pass; the granted row is masked to q_lens == 0,
         #    so its write is parked in the trash block.  (Over a dense
-        #    cache this pass raises until slice 2 ports dense decode.)
+        #    cache this pass raises until the dense-cache decode slice.)
         dec_q = (q_lens == 1).to(torch.int32)
         logits, cache = _model_step(params, tokens[:, :1], cache, pos, dec_q,
                                     block_tables)

@@ -9,7 +9,10 @@ torch, numpy and the port, so it runs on a machine without JAX:
 Tolerances: 2e-5 in float32 (online softmax against a whole-row softmax,
 sums in another order) and 2e-2 in bfloat16 (one bf16 rounding of an
 output of order 1 is up to 4e-3; the kernel and the plain version round
-at different places).
+at different places).  WKV6 outputs grow with the decayed sum over the
+sequence, so its tolerances (1e-5 float32, 1e-2 bfloat16) are relative
+to the largest output.  Gradients of the kernels' autograd Functions
+are the plain versions' own gradients at the same inputs: 1e-5 relative.
 """
 
 import numpy as np
@@ -17,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rwkv6_scan
 
 
 def _t(a):
@@ -103,3 +107,87 @@ def test_cuda_flash_matches_plain(cuda, dt, causal, S, T, D):
     torch.cuda.synchronize()
     tol = CUDA_TOL[dt]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def wkv_case(device, *, B, H, T, N, dtype, seed=0):
+    """r/k/v of order 1 in ``dtype``; w = exp(-exp(w_log)) in float32 as the
+    time mix makes it (w_log in [-4, 1], decays from 0.98 down to 0.07)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r, k, v = (torch.randn(B, H, T, N, generator=g, device=device).to(dtype)
+               for _ in range(3))
+    w_log = torch.rand(B, H, T, N, generator=g, device=device) * 5 - 4
+    w = torch.exp(-torch.exp(w_log))
+    u = torch.randn(H, N, generator=g, device=device)
+    return r, k, v, w, u
+
+
+WKV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,T,N", [(2, 4, 100, 64), (3, 2, 256, 32),
+                                     (1, 3, 1, 64)])
+def test_cuda_wkv6_matches_plain(cuda, dt, B, H, T, N):
+    r, k, v, w, u = wkv_case(cuda, B=B, H=H, T=T, N=N, dtype=dt, seed=T)
+    before = rwkv6_scan.launches["wkv6"]
+    got = ops.wkv6(r, k, v, w, u)
+    want = ref.wkv6_scan(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert rwkv6_scan.launches["wkv6"] == before + 1
+    assert got.dtype == dt
+    tol = WKV_TOL[dt] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_refuses_what_it_does_not_take(cuda):
+    r, k, v, w, u = wkv_case(cuda, B=1, H=2, T=8, N=16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head size"):
+        ops.wkv6(r, k, v, w, u)
+    r, k, v, w, u = wkv_case(cuda, B=1, H=2, T=8, N=64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="float32"):
+        ops.wkv6(r, k, v, w.double(), u)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.wkv6(r.transpose(2, 3), k, v, w, u)
+
+
+def _grads(fn, inputs, g):
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    out.backward(g)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_gradient_matches_plain(cuda):
+    inputs = wkv_case(cuda, B=2, H=4, T=96, N=64, dtype=torch.float32)
+    g = torch.randn(2, 4, 96, 64, device=cuda)
+    before = rwkv6_scan.launches["wkv6"]
+    out, got = _grads(lambda *a: ops.wkv6(*a, chunk=32), inputs, g)
+    assert rwkv6_scan.launches["wkv6"] == before + 1
+    ref_out, want = _grads(lambda *a: ref.wkv6_scan(*a, chunk=32), inputs, g)
+    for a, b in zip([out] + got, [ref_out] + want):
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_gradient_matches_plain(cuda):
+    from repro_torch.kernels import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    inputs = [torch.randn(2, 8, 130, 64, generator=gen, device=cuda),
+              torch.randn(2, 2, 130, 64, generator=gen, device=cuda),
+              torch.randn(2, 2, 130, 64, generator=gen, device=cuda)]
+    g = torch.randn(2, 8, 130, 64, generator=gen, device=cuda)
+    before = flash_attention.launches["flash_attention"]
+    out, got = _grads(lambda *a: ops.flash_attention(*a, causal=True),
+                      inputs, g)
+    assert flash_attention.launches["flash_attention"] == before + 1
+    ref_out, want = _grads(lambda *a: ref.attention_ref(*a, causal=True),
+                           inputs, g)
+    torch.testing.assert_close(out, ref_out, atol=2e-5, rtol=2e-5)
+    for a, b in zip(got, want):
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)

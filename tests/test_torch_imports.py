@@ -26,9 +26,25 @@ for name in names:
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.")
              or n == "repro" or n.startswith("repro."))
-print(len(names), bad)
-sys.exit(1 if bad or len(names) < 20 else 0)
+missing = sorted(set(sys.argv[1:]) - set(names))
+print(len(names), missing, bad)
+sys.exit(1 if bad or missing else 0)
 """
+
+# every module of the port; the probe imports all it finds and fails if
+# one of these is not among them
+MODULES = [
+    "repro_torch.bridge", "repro_torch.checkpoint.manager",
+    "repro_torch.configs.rwkv6_1b6", "repro_torch.core.scan",
+    "repro_torch.data.pipeline", "repro_torch.device",
+    "repro_torch.kernels.build", "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
+    "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
+    "repro_torch.launch.serve", "repro_torch.launch.train",
+    "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.models.recurrent", "repro_torch.optim.adamw",
+    "repro_torch.serve.engine", "repro_torch.train.step",
+]
 
 
 def _env():
@@ -38,10 +54,10 @@ def _env():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    r = subprocess.run([sys.executable, "-c", _PROBE], env=_env(),
+    r = subprocess.run([sys.executable, "-c", _PROBE, *MODULES], env=_env(),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    assert r.stdout.strip().endswith("[]")
+    assert r.stdout.strip().endswith("[] []")
 
 
 def test_entry_points_need_a_gpu_or_an_explicit_cpu():
@@ -61,6 +77,10 @@ def test_entry_points_need_a_gpu_or_an_explicit_cpu():
             lm.init_lm(arch, generator=torch.Generator().manual_seed(0))
         with pytest.raises(RuntimeError, match="device='cpu'"):
             lm.init_paged_cache(arch, 3, 4, 2)
+        from repro_torch.launch import train
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(["--steps", "1", "--width", "64", "--depth", "2",
+                        "--vocab", "64", "--ckpt-every", "0"])
 
 
 def test_serve_launcher_runs_on_cpu_when_asked():

@@ -185,7 +185,7 @@ def test_dense_single_token_decode_names_slice_2():
     _, tx = _x(arch, 2, 1)
     tc = {"k": torch.zeros(2, 8, arch.n_kv_heads, arch.hd),
           "v": torch.zeros(2, 8, arch.n_kv_heads, arch.hd)}
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
         L.attention(tp, tx, arch, positions=torch.tensor([[3], [4]]),
                     kv_cache=tc, cache_pos=torch.tensor([3, 4]))
 

@@ -142,7 +142,7 @@ def test_engine_pool_layout_and_bytes(model):
 
 def test_engine_refuses_what_it_cannot_serve(model):
     arch, _, tp = model
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
         ServeEngine(tp, arch, ServeConfig(max_batch=2, max_len=16,
                                           kv_block_size=0))
     eng = ServeEngine(tp, arch, ServeConfig(max_batch=2, max_len=16,
