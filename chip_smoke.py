@@ -10,27 +10,38 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
 1. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
    all in parallel; print the card's name and power limit.
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the serve engine's shapes (paged decode f32 / bf16 / int8,
-   flash prefill f32 / bf16), with ragged kv_len, tables that point at
-   the trash block and a prompt length that is not a multiple of 128;
-   and at the train step's shapes (flash causal q (8, 32, 256, 64), WKV6
-   (8, 32, 256, 64) f32 / bf16).  One JSON line per phase: error and
-   tolerance, the kernel's, the plain version's and (flash) SDPA's time,
-   and the bound.  Then the gradients of the kernels' autograd Functions
-   (forward the kernel, backward the plain version's gradient) against
-   the plain versions' own autograd.
-3. reference: a small model served on the card and on the CPU (plain
-   versions) with the same weights; first-token logits must agree.  Then
-   two train steps of a small llama and a small rwkv6 on the card and on
-   the CPU from the same weights and batches: metrics, moments and
-   parameters must agree.
+   card, at the serve engine's shapes (paged decode f32 / bf16 / int8 at
+   llama3.2's head dim 64 and f32 / bf16 at olmoe's 128, flash prefill
+   f32 / bf16 at both, dense split-KV decode f32 / bf16 at olmoe's
+   (8, 16, 1, 128) and llama3.2's (8, 8, 4, 64) over a 1024-token cache,
+   MoE scatter and gather f32 / bf16 at olmoe's decode shape (B 8, S 1,
+   K 8, C 8) and chunk shape (B 1, S 256, C 40)), with ragged kv_len,
+   tables that point at the trash block and a prompt length that is not
+   a multiple of 128; and at the train step's shapes (flash causal q
+   (8, 32, 256, 64), WKV6 (8, 32, 256, 64) f32 / bf16).  One JSON line per
+   phase: error and tolerance, the kernel's, the plain version's and the
+   library call's time, and the bound.  Then the gradients of the
+   kernels' autograd Functions (forward the kernel, backward the plain
+   version's gradient) against the plain versions' own autograd.
+3. reference: a small llama served on the card and on the CPU (plain
+   versions) with the same weights; first-token logits must agree.  The
+   same for a small olmoe (head dim 128) in its three modes, with the
+   experts each token chose compared first: logits are held only for the
+   requests whose routing agreed on both sides.  Then two train steps of
+   a small llama and a small rwkv6 on the card and on the CPU from the
+   same weights and batches: metrics, moments and parameters must agree.
 4. serve: full-width llama3.2-1b in float32, ServeEngine with 8 slots and
    max_len 1024, 12 seeded requests (prompts 60-700 tokens, half behind a
-   shared 256-token prefix, 32 new tokens each), in three modes:
+   shared 256-token prefix, 32 new tokens each), in four modes:
    (a) chunked prefill + prefix cache, (b) stall-the-world prefill
-   (flash), (c) int8 pool.  Launch counts are reset before and read after
-   each run; each mode must launch the kernels it uses.  Then a short
-   bfloat16 run of (a).
+   (flash), (c) int8 pool, and the dense per-slot cache (chunked).
+   Launch counts are reset before and read after each run; each mode
+   must launch the kernels it uses.  Then a short bfloat16 run of (a).
+   Then full-width olmoe-1b-7b (64 experts, top 8) in float32 on the same
+   requests: (a) paged, chunked + prefix cache, (b) dense, chunked,
+   (c) dense, stall-the-world; each must launch the MoE scatter and
+   gather and its decode kernel.  Each full-width run is profiled once
+   more for the device's busy share.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
    batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
    with the train command's settings.  Launch counts are reset before and
@@ -48,6 +59,7 @@ Everything measured is also written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -69,8 +81,10 @@ PEAK_FLOPS = {"float32": 67e12,        # f32 outside the tensor cores
 # alone is 2^-8 relative on values of order 1
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # first-token logits of (a) chunked+prefix vs (b) stall-the-world at full
-# width in float32: two attention paths and per-shape cuBLAS algorithms
-# through 16 layers; logits are of order 1
+# width in float32, llama3.2 only: two attention paths and per-shape
+# cuBLAS algorithms through 16 layers; logits are of order 1.  (olmoe's
+# modes route with different capacities — C depends on the chunk — and
+# may legitimately drop different tokens, so they are not compared.)
 SERVE_LOGIT_TOL = 2e-3
 # the same small model on the card and on the CPU (plain versions): f32
 # sums in another order; with the int8 pool a K/V element on a rounding
@@ -204,10 +218,12 @@ def paged_inputs(torch, device, *, B=8, KH=8, G=4, D=64, bs=128,
             torch.as_tensor(kv_len, device=device), scales)
 
 
-def phase_paged(torch, timer, device, name, pool_dtype, q_dtype):
+def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
+                D=64):
     from repro_torch.kernels import ops, ref
     q, kp, vp, tables, kv_len, scales = paged_inputs(
-        torch, device, pool_dtype=pool_dtype, q_dtype=q_dtype)
+        torch, device, KH=KH, G=G, D=D, pool_dtype=pool_dtype,
+        q_dtype=q_dtype)
     got = ops.paged_decode_attention(q, kp, vp, tables, kv_len, **scales)
     want = ref.paged_decode_attention_ref(q, kp, vp, tables, kv_len,
                                           **scales)
@@ -240,15 +256,17 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype):
     return res
 
 
-def phase_flash(torch, timer, device, name, dtype, S=700, T=768):
-    """Stall-the-world prefill's shape: q (1, 32, S, 64) of a 700-token
-    prompt against its cache row, S rounded up to whole 128-blocks."""
+def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
+                D=64):
+    """Stall-the-world prefill's shape: q (1, H, S, D) of an S-token
+    prompt against its cache row: llama3.2's paged row (S rounded up to
+    whole 128-blocks), or olmoe's dense max_len row."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=device).manual_seed(SEED)
-    q = torch.randn(1, 32, S, 64, generator=g, device=device).to(dtype)
-    k = torch.randn(1, 8, T, 64, generator=g, device=device).to(dtype)
-    v = torch.randn(1, 8, T, 64, generator=g, device=device).to(dtype)
+    q = torch.randn(1, H, S, D, generator=g, device=device).to(dtype)
+    k = torch.randn(1, KH, T, D, generator=g, device=device).to(dtype)
+    v = torch.randn(1, KH, T, D, generator=g, device=device).to(dtype)
     k[:, :, S:] = 0          # the row past the prompt holds zeros
     v[:, :, S:] = 0
     got = ops.flash_attention(q, k, v, causal=True)
@@ -359,6 +377,123 @@ def phase_wkv6(torch, timer, device, name, dtype):
     return res
 
 
+def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
+                 T=1024):
+    """Dense-cache decode at the engine's shape: the (B, T, KH, D) cache
+    passed transposed, ragged kv_len (prompts + 32 new tokens, tile and
+    range edges, one full row)."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    rng = np.random.default_rng(SEED)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    q = torch.randn(B, KH, G, D, generator=g, device=device).to(dtype)
+    kc = torch.randn(B, T, KH, D, generator=g, device=device).to(dtype)
+    vc = torch.randn(B, T, KH, D, generator=g, device=device).to(dtype)
+    kv_len = rng.integers(60, 733, B).astype(np.int32)
+    kv_len[:3] = [64, 65, T]
+    kv_len = torch.as_tensor(kv_len, device=device)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    plain = lambda: ref.decode_attention_ref(
+        q.reshape(B, KH * G, D), k, v, kv_len).reshape(B, KH, G, D)
+    mask = (torch.arange(T, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]                 # (B,1,1,T)
+    lib = lambda: F.scaled_dot_product_attention(
+        q.reshape(B, KH * G, 1, D), k, v, attn_mask=mask, enable_gqa=True)
+    got = ops.decode_attention(q, k, v, kv_len)
+    want = plain()
+    lib_err = float((lib().reshape(B, KH, G, D).float()
+                     - want.float()).abs().max())
+    torch.cuda.synchronize()
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    err = float((got.float() - want.float()).abs().max())
+    live = int(kv_len.sum())
+    bytes_ = (2 * q.numel() * q.element_size() + kv_len.numel() * 4
+              + 2 * live * KH * D * kc.element_size())
+    flops = 4 * live * KH * G * D
+    b_ms, b_by = bound(bytes_, flops, dt)
+    res = {"phase": name, "shape": {"q": list(q.shape), "cache": list(kc.shape),
+                                    "kv_len": kv_len.tolist()},
+           "max_abs_err": err, "tol": TOL[dt],
+           "kernel_ms": timer(lambda: ops.decode_attention(q, k, v, kv_len),
+                              iters=50),
+           "kernel_call_ms": timer(lambda: ops.decode_attention(
+               q, k, v, kv_len), iters=50, host=True),
+           "plain_ms": timer(plain, iters=10),
+           "library_ms": timer(lib, iters=20), "library_max_abs_err": lib_err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_,
+           "flops": flops}
+    emit(res)
+    if not err <= TOL[dt]:
+        fail(f"{name}: max abs err {err} > {TOL[dt]}")
+    return res
+
+
+def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
+              D=2048):
+    """olmoe's MoE scatter and gather at the engine's shapes: routing of K
+    distinct experts per token from random router scores, its slot
+    assignment (the chunk shape drops assignments past capacity), the
+    expert outputs random.  Returns the scatter's and the gather's rows."""
+    from repro_torch.kernels import moe_dispatch, ref
+    g = torch.Generator(device=device).manual_seed(SEED)
+    idx = torch.rand(B, S, E, generator=g, device=device).topk(K, -1)[1]
+    lin, keep = ref.moe_positions(idx, E, C)
+    lin = lin.reshape(B, S, K)
+    x = torch.randn(B, S, D, generator=g, device=device).to(dtype)
+    out = torch.randn(B, E * C, D, generator=g, device=device).to(dtype)
+    gates = (torch.rand(B, S, K, generator=g, device=device)
+             * keep.reshape(B, S, K))
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    el = x.element_size()
+    kept = int(keep.sum())
+    live = int((gates != 0).sum())
+    # library: the scatter as one index_put_ into a zeroed buffer
+    rows = torch.arange(B, device=device)[:, None, None].expand(B, S, K)
+    src = x[:, :, None, :].expand(B, S, K, D)
+    kmask = lin < E * C
+
+    def library():
+        buf = torch.zeros(B, E * C + 1, D, dtype=dtype, device=device)
+        return buf.index_put_((rows[kmask], lin[kmask].long()), src[kmask])
+
+    got = moe_dispatch.moe_scatter_cuda(x, lin, E * C)
+    want = ref.moe_scatter_ref(x, lin, E * C)
+    lib_err = float((library() - want).float().abs().max())
+    y = moe_dispatch.moe_gather_cuda(out, lin, gates)
+    y_want = ref.moe_gather_ref(out, lin, gates)
+    torch.cuda.synchronize()
+    shape = {"B": B, "S": S, "K": K, "E": E, "C": C, "D": D,
+             "kept_assignments": kept, "assignments": B * S * K}
+    results = []
+    for kind, err, kern, plain, lib, bytes_, flops, extra in (
+            ("scatter", float((got - want).float().abs().max()),
+             lambda: moe_dispatch.moe_scatter_cuda(x, lin, E * C),
+             lambda: ref.moe_scatter_ref(x, lin, E * C), library,
+             lin.numel() * 4 + x.numel() * el + B * (E * C + 1) * D * el, 0,
+             {"library_max_abs_err": lib_err}),
+            ("gather", float((y - y_want).float().abs().max()),
+             lambda: moe_dispatch.moe_gather_cuda(out, lin, gates),
+             lambda: ref.moe_gather_ref(out, lin, gates), None,
+             lin.numel() * 4 + gates.numel() * 4 + live * D * el
+             + B * S * D * el, 2 * live * D, {})):
+        b_ms, b_by = bound(bytes_, flops, dt)
+        res = {"phase": f"moe-{kind}-{name}", "shape": shape,
+               "max_abs_err": err, "tol": 0.0 if kind == "scatter"
+               else TOL[dt],
+               "kernel_ms": timer(kern, iters=50),
+               "kernel_call_ms": timer(kern, iters=50, host=True),
+               "plain_ms": timer(plain, iters=10),
+               "library_ms": timer(lib, iters=20) if lib else None,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_,
+               "flops": flops, **extra}
+        emit(res)
+        if not err <= res["tol"]:
+            fail(f"moe-{kind}-{name}: max abs err {err} > {res['tol']}")
+        results.append(res)
+    return results
+
+
 def phase_grads(torch, device):
     """Both autograd Functions at the train shapes: output and every input
     gradient against the plain version's own autograd on the same inputs."""
@@ -372,7 +507,19 @@ def phase_grads(torch, device):
         return [out.detach()] + [t.grad for t in leaves]
 
     gen = torch.Generator(device=device).manual_seed(SEED)
+    # MoE: 2 rows of 64 tokens, 16 experts top 4, capacity 16 (drops some)
+    E, K, C = 16, 4, 16
+    idx = torch.rand(2, 64, E, generator=gen, device=device).topk(K, -1)[1]
+    moe_in = [torch.randn(2, 64, 512, generator=gen, device=device),
+              torch.rand(2, 64, K, generator=gen, device=device)] + [
+        torch.randn(s, generator=gen, device=device) / s[1] ** 0.5
+        for s in ((E, 512, 256), (E, 512, 256), (E, 256, 512))]
     cases = {
+        "moe-grad-f32": (
+            lambda x, g, *w: ops.moe_dispatch_combine(x, g, idx, *w,
+                                                      capacity=C),
+            lambda x, g, *w: ref.moe_dense_ref(x, g, idx, *w, capacity=C),
+            moe_in),
         "flash-grad-f32": (
             lambda *a: ops.flash_attention(*a, causal=True),
             lambda *a: ref.attention_ref(*a, causal=True),
@@ -475,16 +622,25 @@ def make_requests(vocab: int, n: int = 12, gen: int = 32):
     return reqs
 
 
+# ServeConfig of each serve mode: llama3.2's (a) chunked + prefix cache,
+# (b) stall-the-world, (c) int8 pool, and the dense per-slot cache; then
+# olmoe's (a) paged, chunked + prefix cache, (b) dense, chunked, (c) dense,
+# stall-the-world
+SERVE_MODES = {"a": {}, "b": {"prefill_chunk_tokens": 0},
+               "c": {"kv_quant": "int8"}, "dense": {"kv_block_size": 0}}
+OLMOE_MODES = {"a": {}, "b": {"kv_block_size": 0},
+               "c": {"kv_block_size": 0, "prefill_chunk_tokens": 0}}
+
+
 def serve_once(torch, params, arch, requests, *, mode, dtype, device,
-               max_batch=8, max_len=1024):
+               max_batch=8, max_len=1024, modes=SERVE_MODES, engine=None):
     """One engine run with the launch counts reset just before it and read
     just after; returns the measurements and the engine."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeConfig
-    kw = {"a": {}, "b": {"prefill_chunk_tokens": 0},
-          "c": {"kv_quant": "int8"}}[mode]
-    eng = recording_engine()(params, arch, ServeConfig(
+    kw = modes[mode]
+    eng = (engine or recording_engine())(params, arch, ServeConfig(
         max_batch=max_batch, max_len=max_len, dtype=dtype, **kw))
     warm_s = eng.warmup(sorted({len(r.prompt) for r in requests}))
     if device.type == "cuda":
@@ -509,8 +665,60 @@ def serve_once(torch, params, arch, requests, *, mode, dtype, device,
            "launches_per_step": {k: v / max(steps, 1)
                                  for k, v in counts.items()},
            "prefill_tokens_saved": eng.prefill_tokens_saved,
+           "kv_bytes_reserved": eng.kv_bytes_reserved,
            "finite": eng.finite}
     return res, eng, {c.uid: c.tokens for c in done}
+
+
+def routing_engine(log: dict):
+    """Recording engine that appends, for every MoE layer call, the experts
+    each row's tokens chose and the request each row belongs to (None for
+    a row that advances no token) to ``log["calls"]``."""
+    base = recording_engine()
+
+    class Routing(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            real_step = self._step
+
+            def step(params, tokens, cache, pos, q_lens=None,
+                     block_tables=None):
+                uid = {slot: st.request.uid
+                       for slot, st in self.scheduler.active.items()}
+                B, T = tokens.shape
+                ql = ([1] * B if q_lens is None
+                      else [int(n) for n in q_lens.tolist()])
+                # a chunk step's decode pass runs the rows with one token;
+                # its chunk pass runs the granted row (the most tokens)
+                live = [n == 1 if T > 1 else n > 0 for n in ql]
+                rows = [uid.get(b) if live[b] else None for b in range(B)]
+                g = max(range(B), key=lambda b: ql[b])
+                log["rows"] = {B: rows, "chunk": [uid.get(g)]}
+                return real_step(params, tokens, cache, pos, q_lens=q_lens,
+                                 block_tables=block_tables)
+            self._step = step
+
+        def _admit_one(self):
+            log["rows"] = {"chunk": [self.queue[0].uid]}
+            return super()._admit_one()
+
+    return Routing
+
+
+def record_routing(log: dict):
+    """Wrap ``models.moe.route`` so each call logs its experts; returns the
+    function that restores it."""
+    from repro_torch.models import moe
+    real = moe.route
+
+    def route(p, x, arch):
+        out = real(p, x, arch)
+        rows = (log["rows"].get(x.shape[0]) or log["rows"].get("chunk")
+                or [None] * x.shape[0])           # warmup: no request
+        log["calls"].append((out[1].cpu(), list(rows)))
+        return out
+    moe.route = route
+    return lambda: setattr(moe, "route", real)
 
 
 def phase_reference(torch, device):
@@ -546,43 +754,150 @@ def phase_reference(torch, device):
             fail(f"reference-{mode}: card vs CPU logits differ by {err}")
 
 
+def phase_reference_olmoe(torch, device):
+    """A small olmoe (2 layers, d 256, 2 heads of 128, 8 experts top 2,
+    d_ff 128) served on the card and on the CPU with the same weights, in
+    its three modes.  The experts each token chose are compared first: the
+    card and the CPU may break a near-tie of two router probabilities
+    differently, and a request with a different choice anywhere takes
+    another path.  First-token logits are held only for the requests
+    whose every routing choice agreed."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import lm
+    arch = dataclasses.replace(
+        configs.get("olmoe-1b-7b"), n_layers=2, d_model=256, n_heads=2,
+        n_kv_heads=2, d_ff=128, moe_d_ff=128, vocab=512, n_experts=8,
+        top_k=2)
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    reqs = make_requests(arch.vocab, n=6, gen=8)
+    for mode in OLMOE_MODES:
+        runs = {}
+        for dev in (device, torch.device("cpu")):
+            log = {"calls": [], "rows": {}}
+            restore = record_routing(log)
+            try:
+                p = lm.tree_map(lambda t: t.to(dev), params)
+                res, eng, toks = serve_once(
+                    torch, p, arch, reqs, mode=mode, dtype=torch.float32,
+                    device=dev, max_batch=4, max_len=1024,
+                    modes=OLMOE_MODES, engine=routing_engine(log))
+            finally:
+                restore()
+            runs[dev.type] = (eng.first_logits, toks, log["calls"],
+                              res["launches"])
+        (gl, gt, gc, launches), (cl, ct, cc, _) = runs["cuda"], runs["cpu"]
+        choices = flips = 0
+        moved = set()
+        for (a, rows), (b, _) in zip(gc, cc):
+            differ = (a != b).any(-1)                      # (rows, tokens)
+            for r, uid in enumerate(rows):
+                if uid is not None:
+                    choices += differ.shape[1]
+                    flips += int(differ[r].sum())
+                    if bool(differ[r].any()):
+                        moved.add(uid)
+        held = [u for u in cl if u not in moved]
+        err = max((float((gl[u] - cl[u]).abs().max()) for u in held),
+                  default=float("nan"))
+        same = sum(x == y for u in held for x, y in zip(gt[u], ct[u]))
+        emit({"phase": f"reference-olmoe-{mode}",
+              "moe_calls": [len(gc), len(cc)],
+              "routing_choices": choices, "routing_choices_differing": flips,
+              "requests_rerouted": sorted(moved), "requests_held": held,
+              "first_logits_max_abs_err": err, "tol": REF_LOGIT_TOL["a"],
+              "tokens_equal": same,
+              "tokens": sum(len(ct[u]) for u in held),
+              "launches_card": launches})
+        if len(gc) != len(cc) or not choices:
+            fail(f"reference-olmoe-{mode}: {len(gc)} MoE calls on the card, "
+                 f"{len(cc)} on the CPU")
+        if not held or not err <= REF_LOGIT_TOL["a"]:
+            fail(f"reference-olmoe-{mode}: card vs CPU logits differ by "
+                 f"{err} over {len(held)} requests with equal routing")
+        if min(launches["moe_scatter"], launches["moe_gather"]) <= 0:
+            fail(f"reference-olmoe-{mode}: the MoE kernels were not "
+                 f"launched ({launches})")
+
+
 def busy_share(torch, fn):
-    """Run ``fn`` once under ``torch.profiler``; returns (wall s, device
-    busy s, top kernels)."""
+    """Run ``fn`` once under ``torch.profiler`` (device activity only);
+    returns (wall s, device busy s, top kernels).  Busy time is the sum of
+    the device events' durations (kernels, copies, memsets; one stream, so
+    they do not overlap), read from the raw trace: building the profiler's
+    per-operator tables takes minutes for a run of ~10^5 launches."""
+    from collections import defaultdict
+
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-    # kernels only: an operator's row repeats the time of the kernels it
-    # launched
-    rows = sorted((e for e in prof.key_averages()
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                  key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in rows) / 1e6
-    top = [{"name": e.key[:80], "device_ms": dev_us(e) / 1e3,
-            "count": e.count} for e in rows[:10]]
+    by_name = defaultdict(lambda: [0, 0])               # name -> [ns, count]
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            row = by_name[e.name()]
+            row[0] += e.duration_ns()
+            row[1] += 1
+    busy = sum(ns for ns, _ in by_name.values()) / 1e9
+    rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    top = [{"name": name[:80], "device_ms": ns / 1e6, "count": n}
+           for name, (ns, n) in rows[:10]]
     return wall, busy, top
 
 
-def profile_run(torch, params, arch, requests, device):
-    """Mode (a) once more under ``torch.profiler``: the device's busy share
+def profile_run(torch, params, arch, requests, mode, modes, wall_s,
+                name):
+    """``mode`` once more under ``torch.profiler``: the device's busy share
     of the run's wall time and the kernels that take the most device time.
     The profiler adds host time of its own, so the busy share it gives is
-    a lower bound."""
+    a lower bound; ``wall_s`` (the unprofiled run's wall) gives the share
+    of the same device work without it."""
     from repro_torch.serve import ServeConfig
     eng = recording_engine()(params, arch, ServeConfig(
-        max_batch=8, max_len=1024, dtype=torch.float32))
+        max_batch=8, max_len=1024, dtype=torch.float32, **modes[mode]))
     eng.warmup(sorted({len(r.prompt) for r in requests}))
     wall, busy, top = busy_share(torch, lambda: eng.run(requests))
-    return {"phase": "profile-a", "wall_s": wall, "device_busy_s": busy,
+    return {"phase": f"profile-{name}", "wall_s": wall,
+            "device_busy_s": busy,
             "device_busy_share": busy / wall if busy else None,
+            "device_busy_share_unprofiled": busy / wall_s,
             "top_kernels": top}
+
+
+def serve_modes(torch, params, arch, reqs, device, *, name, modes, need,
+                profile):
+    """Each mode of ``modes`` once, launch counts reset just before and read
+    just after; each must launch the kernels ``need`` names for it, give
+    finite logits and serve every request.  Modes in ``profile`` run once
+    more under the profiler.  Returns (runs, main-path launch counts by
+    run)."""
+    runs, counts = {}, {}
+    for mode in modes:
+        res, eng, toks = serve_once(torch, params, arch, reqs, mode=mode,
+                                    dtype=torch.float32, device=device,
+                                    modes=modes)
+        runs[mode] = (res, eng.first_logits, toks)
+        del eng
+        counts[f"{name}-{mode}"] = res["launches"]
+        emit({"phase": f"{name}-{mode}", "arch": arch.name,
+              "config": modes[mode], **res})
+        for k in need[mode]:
+            if res["launches"][k] <= 0:
+                fail(f"{name}-{mode}: kernel {k} was not launched")
+        if not res["finite"]:
+            fail(f"{name}-{mode}: non-finite logits")
+        if res["requests"] != len(reqs):
+            fail(f"{name}-{mode}: {res['requests']} of {len(reqs)} served")
+        if mode in profile:
+            emit(profile_run(torch, params, arch, reqs, mode, modes,
+                             res["wall_s"], f"{name}-{mode}"))
+        torch.cuda.empty_cache()
+    return runs, counts
 
 
 def phase_serve(torch, device):
@@ -598,47 +913,64 @@ def phase_serve(torch, device):
     reqs = make_requests(arch.vocab)
     need = {"a": ["paged_decode_attention"],
             "b": ["paged_decode_attention", "flash_attention"],
-            "c": ["paged_decode_attention_int8"]}
-    runs, main_counts = {}, {}
-    for mode in ("a", "b", "c"):
-        res, eng, toks = serve_once(torch, params, arch, reqs, mode=mode,
-                                    dtype=torch.float32, device=device)
-        runs[mode] = (res, eng, toks)
-        emit({"phase": f"serve-{mode}", **res})
-        for k in need[mode]:
-            main_counts.setdefault(k, res["launches"][k])
-            if res["launches"][k] <= 0:
-                fail(f"serve-{mode}: kernel {k} was not launched")
-        if not res["finite"]:
-            fail(f"serve-{mode}: non-finite logits")
-        if res["requests"] != len(reqs):
-            fail(f"serve-{mode}: {res['requests']} of {len(reqs)} served")
+            "c": ["paged_decode_attention_int8"],
+            "dense": ["decode_attention"]}
+    runs, counts = serve_modes(torch, params, arch, reqs, device,
+                               name="serve", modes=SERVE_MODES, need=need,
+                               profile=("a", "dense"))
     if runs["a"][0]["prefill_tokens_saved"] <= 0:
         fail("serve-a: no prefix-cache hit")
-    la, lb = runs["a"][1].first_logits, runs["b"][1].first_logits
-    err = max(float((la[u] - lb[u]).abs().max()) for u in lb)
-    ta, tb = runs["a"][2], runs["b"][2]
-    same = sum(x == y for u in tb for x, y in zip(ta[u], tb[u]))
-    total = sum(len(t) for t in tb.values())
-    emit({"phase": "serve-a-vs-b", "first_logits_max_abs_err": err,
-          "tol": SERVE_LOGIT_TOL, "requests_compared": len(lb),
-          "token_agreement": same / total, "tokens_equal": same,
-          "tokens": total})
-    if len(lb) != len(reqs) or not err <= SERVE_LOGIT_TOL:
-        fail(f"serve a vs b: first-token logits differ by {err}")
-    prof = profile_run(torch, params, arch, reqs, device)
-    # the same work without the profiler's host cost
-    prof["device_busy_share_unprofiled"] = (prof["device_busy_s"]
-                                            / runs["a"][0]["wall_s"])
-    emit(prof)
+    for other in ("b", "dense"):
+        la, lb = runs["a"][1], runs[other][1]
+        err = max(float((la[u] - lb[u]).abs().max()) for u in lb)
+        ta, tb = runs["a"][2], runs[other][2]
+        same = sum(x == y for u in tb for x, y in zip(ta[u], tb[u]))
+        total = sum(len(t) for t in tb.values())
+        emit({"phase": f"serve-a-vs-{other}",
+              "first_logits_max_abs_err": err, "tol": SERVE_LOGIT_TOL,
+              "requests_compared": len(lb), "token_agreement": same / total,
+              "tokens_equal": same, "tokens": total})
+        if len(lb) != len(reqs) or not err <= SERVE_LOGIT_TOL:
+            fail(f"serve a vs {other}: first-token logits differ by {err}")
     bf = lm.tree_map(lambda t: t.to(torch.bfloat16), params)
-    del params
+    del params, runs
     res, _, _ = serve_once(torch, bf, arch, reqs, mode="a",
                            dtype=torch.bfloat16, device=device)
     emit({"phase": "serve-a-bf16", **res})
     if not res["finite"]:
         fail("serve-a-bf16: non-finite logits")
-    return main_counts
+    return counts
+
+
+def phase_serve_olmoe(torch, device):
+    """Full-width olmoe-1b-7b (16 layers, d 2048, 16 heads of 128, 64
+    experts top 8, d_ff 1024, vocab 50304) in float32, random weights, on
+    the llama phase's requests, in its three modes.  Each mode is held to
+    finite logits, every request served and its kernels launched; the
+    modes are not compared with each other (their capacities differ)."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    arch = configs.get("olmoe-1b-7b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    print(f"# olmoe weights: {n_params / 1e9:.2f} B in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    moe = ["moe_scatter", "moe_gather"]
+    need = {"a": ["paged_decode_attention", *moe],
+            "b": ["decode_attention", *moe],
+            "c": ["decode_attention", "flash_attention", *moe]}
+    runs, counts = serve_modes(torch, params, arch,
+                               make_requests(arch.vocab), device,
+                               name="serve-olmoe", modes=OLMOE_MODES,
+                               need=need, profile=tuple(OLMOE_MODES))
+    if runs["a"][0]["prefill_tokens_saved"] <= 0:
+        fail("serve-olmoe-a: no prefix-cache hit")
+    del params, runs
+    return counts
 
 
 # --------------------------------------------------------------------------- #
@@ -804,13 +1136,14 @@ def train_full(torch, device, name, kernel, min_per_step, steps=4):
              f"{steps} steps (want >= {min_per_step} per step)")
     del params, opt
     torch.cuda.empty_cache()
-    return counts[kernel]
+    return counts
 
 
 def phase_train(torch, device):
-    counts = {"flash_attention": train_full(
+    counts = {"train-llama3.2-1b": train_full(
                   torch, device, "llama3.2-1b", "flash_attention", 16),
-              "wkv6": train_full(torch, device, "rwkv6-1.6b", "wkv6", 24)}
+              "train-rwkv6-1.6b": train_full(torch, device, "rwkv6-1.6b",
+                                             "wkv6", 24)}
     from repro_torch.launch import train
     for name in ("llama3.2-1b", "rwkv6-1.6b"):
         t0 = time.perf_counter()
@@ -875,6 +1208,42 @@ def main() -> int:
                                           torch.float32)),
         ("flash-bf16", lambda: phase_flash(torch, timer, device,
                                            "flash-bf16", torch.bfloat16)),
+        ("paged-d128-f32", lambda: phase_paged(
+            torch, timer, device, "paged-d128-f32", torch.float32,
+            torch.float32, KH=16, G=1, D=128)),
+        ("paged-d128-bf16", lambda: phase_paged(
+            torch, timer, device, "paged-d128-bf16", torch.bfloat16,
+            torch.bfloat16, KH=16, G=1, D=128)),
+        ("flash-d128-f32", lambda: phase_flash(
+            torch, timer, device, "flash-d128-f32", torch.float32, S=675,
+            T=1024, H=16, KH=16, D=128)),
+        ("flash-d128-bf16", lambda: phase_flash(
+            torch, timer, device, "flash-d128-bf16", torch.bfloat16, S=675,
+            T=1024, H=16, KH=16, D=128)),
+        ("decode-olmoe-f32", lambda: phase_decode(
+            torch, timer, device, "decode-olmoe-f32", torch.float32, B=8,
+            KH=16, G=1, D=128)),
+        ("decode-olmoe-bf16", lambda: phase_decode(
+            torch, timer, device, "decode-olmoe-bf16", torch.bfloat16, B=8,
+            KH=16, G=1, D=128)),
+        ("decode-llama-f32", lambda: phase_decode(
+            torch, timer, device, "decode-llama-f32", torch.float32, B=8,
+            KH=8, G=4, D=64)),
+        ("decode-llama-bf16", lambda: phase_decode(
+            torch, timer, device, "decode-llama-bf16", torch.bfloat16, B=8,
+            KH=8, G=4, D=64)),
+        ("moe-decode-f32", lambda: phase_moe(
+            torch, timer, device, "decode-f32", torch.float32, B=8, S=1,
+            C=8)),
+        ("moe-decode-bf16", lambda: phase_moe(
+            torch, timer, device, "decode-bf16", torch.bfloat16, B=8, S=1,
+            C=8)),
+        ("moe-chunk-f32", lambda: phase_moe(
+            torch, timer, device, "chunk-f32", torch.float32, B=1, S=256,
+            C=40)),
+        ("moe-chunk-bf16", lambda: phase_moe(
+            torch, timer, device, "chunk-bf16", torch.bfloat16, B=1, S=256,
+            C=40)),
         ("flash-train-f32", lambda: phase_flash_train(torch, timer, device)),
         ("wkv6-f32", lambda: phase_wkv6(torch, timer, device, "wkv6-f32",
                                         torch.float32)),
@@ -882,25 +1251,47 @@ def main() -> int:
                                          torch.bfloat16)),
         ("grads", lambda: phase_grads(torch, device)),
         ("reference", lambda: phase_reference(torch, device)),
+        ("reference-olmoe", lambda: phase_reference_olmoe(torch, device)),
         ("reference-train", lambda: phase_reference_train(torch, device)),
         ("serve", lambda: phase_serve(torch, device)),
+        ("serve-olmoe", lambda: phase_serve_olmoe(torch, device)),
         ("train", lambda: phase_train(torch, device)),
     ]
-    counts = {}
+    counts, seconds = {}, {}
     for name, fn in steps:
+        t0 = time.perf_counter()
         try:
             out = fn()
         except Exception:                 # record, then go on to the next
             fail(f"{name}: {traceback.format_exc()}")
             continue
-        if name in ("serve", "train"):      # launch counts of the main path
-            counts[name] = out
+        finally:
+            # engines hold their parameters in reference cycles (the
+            # recording wrappers close over the engine): collect them
+            # before the next phase allocates
+            gc.collect()
+            torch.cuda.empty_cache()
+            seconds[name] = time.perf_counter() - t0
+            print(f"# {name}: {seconds[name]:.1f} s", flush=True)
+        if name in ("serve", "serve-olmoe", "train"):
+            counts.update(out)            # launch counts of the main path
+        elif isinstance(out, list):
+            kern.update((r["phase"], r) for r in out)
         elif out is not None:
             kern[name] = out
 
-    # each kernel's launches in the main-path runs it is on: the serve
-    # modes (counts of the first mode that uses it) and the train steps
-    rows = [("paged_decode_attention", "paged-f32",
+    # each kernel's launches in the main-path runs it is on (each serve
+    # mode and the train steps), and its numbers at one main-path shape
+    rows = [("decode_attention", "decode-olmoe-f32",
+             "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:34"),
+            ("moe_scatter", "moe-scatter-decode-f32",
+             "src/repro_torch/csrc/moe_dispatch.cu",
+             "src/repro/kernels/moe_kernels.py:176"),
+            ("moe_gather", "moe-gather-decode-f32",
+             "src/repro_torch/csrc/moe_dispatch.cu",
+             "src/repro/kernels/moe_kernels.py:192"),
+            ("paged_decode_attention", "paged-f32",
              "src/repro_torch/csrc/paged_decode_attention.cu",
              "src/repro/kernels/paged_decode_attention.py:37"),
             ("paged_decode_attention_int8", "paged-int8",
@@ -915,7 +1306,7 @@ def main() -> int:
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
         by_path = {path: c[name] for path, c in counts.items()
-                   if name in c}
+                   if c.get(name)}
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
                         "launches": sum(by_path.values()),
@@ -927,6 +1318,7 @@ def main() -> int:
                         "bound_by": k.get("bound_by"),
                         "library_ms": k.get("library_ms")})
     record["kernels"] = kernels
+    record["seconds"] = seconds
     record["failures"] = failures
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     if failures:

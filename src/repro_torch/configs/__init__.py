@@ -1,8 +1,9 @@
 """Architecture configs the port runs (``--arch <id>``).
 
-Copies of ``repro.configs``' four dense configs (trained and served) and
-of ``rwkv6_1b6`` (trained): each module defines ``ARCH`` (the published
-config) and ``reduced()`` (a small same-family config for CPU tests).
+Copies of ``repro.configs``' four dense configs (trained and served), of
+``olmoe_1b_7b`` (MoE, served) and of ``rwkv6_1b6`` (trained): each
+module defines ``ARCH`` (the published config) and ``reduced()`` (a
+small same-family config for CPU tests).
 The other ids of the reference exist there and raise here, naming the
 ROADMAP slice that brings them.
 """
@@ -12,7 +13,7 @@ from __future__ import annotations
 import importlib
 
 ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b",
-             "rwkv6_1b6"]
+             "olmoe_1b_7b", "rwkv6_1b6"]
 
 # assignment ids -> module names (the reference's table)
 ALIASES = {
@@ -30,8 +31,8 @@ ALIASES = {
 
 #: reference archs not ported yet -> the ROADMAP slice that brings them
 LATER = {
-    "phi3_5_moe_42b": "the MoE slice",
-    "olmoe_1b_7b": "the MoE slice",
+    "phi3_5_moe_42b": "multi-GPU plans (its 42B parameters do not fit "
+                      "one card)",
     "jamba_1_5_large": "the Mamba slice",
     "internvl2_76b": "the VLM / encoder-decoder slice",
     "seamless_m4t_v2": "the VLM / encoder-decoder slice",

@@ -78,9 +78,19 @@ def _finish(name: str, started) -> str:
 
 def build_all() -> dict[str, str]:
     """Build every source in parallel; returns name -> nvcc's output
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    (``-Xptxas -v``: registers, shared memory and spills per kernel).
+    Every build runs to its end before a failure is raised, naming all
+    the sources that failed."""
     started = {name: _start(name) for name in sources()}
-    return {name: _finish(name, s) for name, s in started.items()}
+    logs, errors = {}, []
+    for name, s in started.items():
+        try:
+            logs[name] = _finish(name, s)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,0 +1,90 @@
+"""Split-KV decode attention over a dense per-slot cache: the CUDA kernel's
+wrapper and its launch count.  Counterpart of
+``repro.kernels.decode_attention``.
+
+The kernel (``csrc/decode_attention.cu``) takes single-token q
+``(B, KH, G, D)`` and k/v ``(B, KH, T, D)`` in float32 or bfloat16, head
+dim 64 or 128, any T, and any strides with the head dim contiguous (the
+engine's ``(B, T, KH, D)`` cache passes transposed, without a copy).  It
+splits the KV axis across CTAs and combines the partials in a second
+launch; one call of the wrapper is one launch of the pair.  Its plain
+version is :func:`repro_torch.kernels.ref.decode_attention_ref`;
+:mod:`repro_torch.kernels.ops` picks between the two by the tensor's
+device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+#: launches since the last reset; the wrapper adds one where it launches
+launches = {"decode_attention": 0}
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_SMS = 132          # H100 SXM streaming multiprocessors
+_TILE = 64          # tokens per shared-memory tile of the kernel
+
+
+def _lib():
+    fn = build.load("decode_attention").decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 8 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"decode_attention: {msg}")
+
+
+def split_plan(B: int, KH: int, T: int) -> tuple[int, int]:
+    """(chunk, splits): tokens per CTA, a whole number of tiles, chosen so
+    the B * KH * splits CTAs cover the SMs about twice; splits * chunk
+    >= T."""
+    want = max(1, -(-2 * _SMS // (B * KH)))
+    chunk = -(-max(1, -(-T // want)) // _TILE) * _TILE
+    return chunk, -(-T // chunk)
+
+
+def decode_attention_cuda(q, k, v, kv_len):
+    """Launch the CUDA kernels on CUDA tensors; raises on anything they do
+    not take.  ``kv_len`` is a (B,) int32 CUDA tensor."""
+    B, KH, G, D = q.shape
+    T = k.shape[2]
+    tensors = (q, k, v, kv_len)
+    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+             "q, k, v and kv_len must be on the same CUDA device")
+    _require(q.ndim == 4 and k.ndim == 4 and v.shape == k.shape
+             and tuple(k.shape[:2]) == (B, KH) and k.shape[3] == D,
+             f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} / v "
+             f"{tuple(v.shape)} do not agree")
+    _require(q.is_contiguous() and k.stride(3) == 1 and v.stride(3) == 1,
+             "q must be contiguous and k/v contiguous in the head dim")
+    _require(q.dtype in _DTYPE and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (float32 or bfloat16, "
+             f"all the same)")
+    _require(D in (64, 128) and G * D <= 2048 and T > 0,
+             f"head dim {D} (64 or 128), group {G} (G*D <= 2048), T {T} > 0")
+    _require(tuple(kv_len.shape) == (B,) and kv_len.dtype == torch.int32,
+             "kv_len must be (B,) int32")
+    chunk, splits = split_plan(B, KH, T)
+    out = torch.empty_like(q)
+    m_ws = torch.empty(B * KH * splits * G, dtype=torch.float32,
+                       device=q.device)
+    l_ws = torch.empty_like(m_ws)
+    acc_ws = torch.empty(B * KH * splits * G * D, dtype=torch.float32,
+                         device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
+                 out.data_ptr(), m_ws.data_ptr(), l_ws.data_ptr(),
+                 acc_ws.data_ptr(), B, KH, G, D, T, *k.stride()[:3],
+                 *v.stride()[:3], chunk, splits, _DTYPE[q.dtype], stream)
+    build.check(err, "decode_attention")
+    launches["decode_attention"] += 1
+    return out

@@ -1,0 +1,147 @@
+"""MoE capacity dispatch: the CUDA scatter and gather kernels' wrappers,
+their launch counts, and the op built on them.  Counterpart of the Pallas
+path of ``repro.kernels.moe_kernels`` (``_moe_pallas_impl``).
+
+The kernels (``csrc/moe_dispatch.cu``) take float32 or bfloat16 tokens
+and any shape: the TPU path is gated on a 4 MiB VMEM budget for the
+(E*C + 1, D) buffer (``_supports_pallas``), which olmoe's decode shape
+already exceeds (513 slots x 2048 x 4 B); these have no such limit.
+
+* :func:`moe_scatter_cuda` — lin (B, S, K) int32 and x (B, S, D) -> buf
+  (B, E*C + 1, D).  The buffer comes from ``torch.zeros`` (one memset)
+  just before the launch: every slot feeds the expert FFN, and a slot no
+  token fills must hold zeros.  Dropped assignments (the trash slot) are
+  skipped.  Plain version :func:`repro_torch.kernels.ref.moe_scatter_ref`.
+* :func:`moe_gather_cuda` — lin, out (B, E*C, D) and gates (B, S, K)
+  float32 -> y (B, S, D), float32 accumulation, zero gates skipped.
+  Plain version :func:`repro_torch.kernels.ref.moe_gather_ref`.
+
+:func:`moe_dispatch_combine` runs slot assignment (plain torch), the
+scatter kernel, the expert FFN (``torch.einsum``) and the gather kernel:
+the plain op :func:`repro_torch.kernels.ref.moe_scatter` with the two
+kernels in place of their plain versions.
+Like the reference's ``with_reference_vjp``, the kernels are
+forward-only: :class:`MoEDispatchCombine` runs them forward and, in the
+backward pass, differentiates the plain ``moe_dense_ref`` at the saved
+inputs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build, ref
+
+#: launches since the last reset; each wrapper adds one where it launches
+launches = {"moe_scatter": 0, "moe_gather": 0}
+
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _fn(name: str, n_ptr: int):
+    fn = getattr(build.load("moe_dispatch"), name)
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * n_ptr + [_I] * 6 + [_P]
+        fn.restype = _I
+    return fn
+
+
+def _require(cond: bool, op: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{op}: {msg}")
+
+
+def _check(op, tensors, dtype_of, lin, B, S):
+    _require(all(t.is_cuda and t.device == lin.device for t in tensors), op,
+             "every tensor must be on the same CUDA device")
+    _require(all(t.is_contiguous() for t in tensors), op,
+             "every tensor must be contiguous")
+    _require(dtype_of.dtype in _DTYPE, op,
+             f"dtype {dtype_of.dtype} (float32 or bfloat16)")
+    _require(lin.ndim == 3 and tuple(lin.shape[:2]) == (B, S)
+             and lin.dtype == torch.int32, op,
+             f"lin must be (B, S, K) = ({B}, {S}, K) int32, got "
+             f"{tuple(lin.shape)} {lin.dtype}")
+
+
+def moe_scatter_cuda(x, lin, n_slots: int):
+    """Launch the scatter kernel: x (B, S, D), lin (B, S, K) int32 ->
+    buf (B, n_slots + 1, D) in x's dtype."""
+    B, S, D = x.shape
+    _check("moe_scatter", (x, lin), x, lin, B, S)
+    buf = torch.zeros(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = _fn("moe_scatter", 3)(lin.data_ptr(), x.data_ptr(), buf.data_ptr(),
+                                B, S, lin.shape[2], n_slots, D,
+                                _DTYPE[x.dtype], stream)
+    build.check(err, "moe_scatter")
+    launches["moe_scatter"] += 1
+    return buf
+
+
+def moe_gather_cuda(out, lin, gates):
+    """Launch the gather kernel: out (B, n_slots, D), lin (B, S, K) int32,
+    gates (B, S, K) float32 -> y (B, S, D) in out's dtype."""
+    B, n_slots, D = out.shape
+    S, K = lin.shape[1:]
+    _check("moe_gather", (out, lin, gates), out, lin, B, S)
+    _require(tuple(gates.shape) == (B, S, K)
+             and gates.dtype == torch.float32, "moe_gather",
+             "gates must be (B, S, K) float32")
+    y = torch.empty(B, S, D, dtype=out.dtype, device=out.device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = _fn("moe_gather", 4)(lin.data_ptr(), out.data_ptr(),
+                               gates.data_ptr(), y.data_ptr(), B, S, K,
+                               n_slots, D, _DTYPE[out.dtype], stream)
+    build.check(err, "moe_gather")
+    launches["moe_gather"] += 1
+    return y
+
+
+def moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo, *,
+                      capacity: int):
+    """The op on the card: :func:`repro_torch.kernels.ref.moe_scatter` with
+    the scatter and gather kernels in place of their plain versions."""
+    return ref.moe_scatter(x, gate_vals, expert_idx, wi, wg, wo,
+                           capacity=capacity, scatter_rows=moe_scatter_cuda,
+                           gather_rows=moe_gather_cuda)
+
+
+class MoEDispatchCombine(torch.autograd.Function):
+    """Forward: the CUDA kernels.  Backward: the gradient of the plain
+    :func:`~repro_torch.kernels.ref.moe_dense_ref` at the saved inputs
+    (none for the integer ``expert_idx``)."""
+
+    @staticmethod
+    def forward(ctx, x, gate_vals, expert_idx, wi, wg, wo, capacity):
+        ctx.save_for_backward(x, gate_vals, expert_idx, wi, wg, wo)
+        ctx.capacity = capacity
+        return moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo,
+                                 capacity=capacity)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate_vals, expert_idx, wi, wg, wo = ctx.saved_tensors
+        args = [a.detach().requires_grad_() for a in (x, gate_vals, wi, wg,
+                                                      wo)]
+        with torch.enable_grad():
+            out = ref.moe_dense_ref(args[0], args[1], expert_idx, *args[2:],
+                                    capacity=ctx.capacity)
+        gx, gg, gwi, gwg, gwo = torch.autograd.grad(out, args, g)
+        return gx, gg, None, gwi, gwg, gwo, None
+
+
+def moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg, wo, *,
+                         capacity: int):
+    """The kernels, differentiable when autograd needs it: through
+    :class:`MoEDispatchCombine` when a gradient is being recorded, else
+    launched directly."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gate_vals, wi, wg, wo)):
+        return MoEDispatchCombine.apply(x, gate_vals, expert_idx, wi, wg, wo,
+                                        capacity)
+    return moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo,
+                             capacity=capacity)

@@ -8,22 +8,25 @@ Where autograd records a gradient, a CUDA call goes through the kernel's
 ``autograd.Function`` (forward the kernel, backward the gradient of the
 plain version), so no caller gets an output detached from its inputs.
 
-The mixed-step form of the paged op (5-d q, one kv_len per query token)
-is plain torch on every device, as its counterpart is XLA in the
-reference (:mod:`repro_torch.kernels.mha_stream`).
+The mixed-step forms of the dense and paged decode ops (5-d q, one
+kv_len per query token) are plain torch on every device, as their
+counterparts are XLA in the reference (:mod:`repro_torch.kernels.mha_stream`).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mha_stream
+from . import moe_dispatch as _moe
 from . import paged_decode_attention as _paged
 from . import ref
 from . import rwkv6_scan as _wkv6
 
-_COUNTERS = (_flash.launches, _paged.launches, _wkv6.launches)
+_COUNTERS = (_flash.launches, _decode.launches, _paged.launches,
+             _moe.launches, _wkv6.launches)
 
 
 def launch_counts() -> dict[str, int]:
@@ -60,16 +63,21 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q=None,
 
 
 def decode_attention(q, k, v, kv_len, *, block_k=None):
-    """Dense-cache decode.  The mixed-step form (q (B, KH, G, T, D),
-    kv_len (B, T)) streams in plain torch; the single-token form's kernel
-    arrives with the dense-cache decode slice (ROADMAP.md)."""
+    """Dense-cache decode.  q: (B, KH, G, D); k/v: (B, KH, T, D) (any
+    strides with the head dim contiguous) -> (B, KH, G, D); kv_len:
+    scalar or (B,).  ``block_k`` is accepted for signature parity (the
+    CUDA kernel picks its own split).  The mixed-step form (q
+    (B, KH, G, T, D), kv_len (B, T)) streams in plain torch on every
+    device, as its counterpart is XLA in the reference."""
     if q.ndim == 5:
         return mha_stream.mixed_decode_attention(q, k, v, kv_len,
                                                  block_k=block_k)
-    raise NotImplementedError(
-        "single-token decode over a dense cache (decode_attention) is "
-        "ported in the dense-cache decode slice (ROADMAP.md); serve with "
-        "the paged cache (kv_block_size > 0)")
+    B, KH, G, D = q.shape
+    kv_len = ref.normalize_kv_len(kv_len, B, q.device)
+    if _route(q, "decode_attention"):
+        return _decode.decode_attention_cuda(q, k, v, kv_len)
+    out = ref.decode_attention_ref(q.reshape(B, KH * G, D), k, v, kv_len)
+    return out.reshape(B, KH, G, D)
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
@@ -103,6 +111,21 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
     return ref.paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_len, k_scale=k_scale,
                                           v_scale=v_scale)
+
+
+def moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg, wo, *,
+                         capacity: int):
+    """MoE dispatch + expert FFN + combine; x: (B, S, D); gate_vals /
+    expert_idx: (B, S, K); wi/wg: (E, D, F); wo: (E, F, D) -> y (B, S, D).
+    GShard capacity per batch row; assignments past ``capacity`` are
+    dropped.  On the card: the scatter and gather kernels around a torch
+    expert FFN; on the CPU: the plain scatter/gather
+    (:func:`repro_torch.kernels.ref.moe_scatter`)."""
+    if _route(x, "moe_dispatch_combine"):
+        return _moe.moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg,
+                                         wo, capacity=capacity)
+    return ref.moe_scatter(x, gate_vals, expert_idx, wi, wg, wo,
+                           capacity=capacity)
 
 
 def wkv6(r, k, v, w, u, *, chunk: int = 64, initial_state=None,

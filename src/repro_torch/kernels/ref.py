@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the kernels: the counterparts of
 ``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``,
-``wkv6_ref``, ``wkv6_scan``).
+``wkv6_ref``, ``wkv6_scan``) and of the MoE functions of
+``repro.kernels.moe_kernels`` (``moe_positions`` .. ``moe_scatter``).
 
 They are what a CPU tensor runs, what ``chip_smoke.py`` holds each CUDA
 kernel against on the card, and what the kernels' backward passes
@@ -13,6 +14,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.scan import remat_time_scan
 
@@ -173,3 +175,99 @@ def wkv6_scan(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
                               (tm(r), tm(k), tm(v), tm(w)), chunk=chunk)
     out = out.permute(1, 2, 0, 3).to(r.dtype)                 # (B, H, T, N)
     return (out, Sn) if return_state else out
+
+
+# --------------------------------------------------------------------------- #
+# MoE capacity dispatch (GShard): routing stays in the model; these own
+# everything after it
+# --------------------------------------------------------------------------- #
+def moe_positions(expert_idx, E: int, C: int):
+    """Per-group (batch-row) expert slot assignment.
+
+    expert_idx: (B, S, K) -> (lin (B, S*K) int32, the flat buffer index
+    ``e * C + position-in-expert`` with assignments past capacity mapped
+    to the trash slot ``E * C``; keep (B, S*K) bool).  Assignments take
+    slots in (token, k) order, as a one-hot cumsum.
+    """
+    B, S, K = expert_idx.shape
+    flat = F.one_hot(expert_idx.long(), E).reshape(B, S * K, E)
+    pos = torch.cumsum(flat, dim=1) - flat                     # (B, S*K, E)
+    pos_in_expert = (pos * flat).sum(-1)                       # (B, S*K)
+    eidx = expert_idx.reshape(B, S * K).long()
+    keep = pos_in_expert < C
+    lin = torch.where(keep, eidx * C + pos_in_expert,
+                      torch.full_like(eidx, E * C))
+    return lin.to(torch.int32), keep
+
+
+def expert_ffn(buf, wi, wg, wo):
+    """buf: (B, E, C, D) -> (B, E, C, D), each expert's SwiGLU FFN."""
+    h = torch.einsum("becd,edf->becf", buf, wi)
+    g = torch.einsum("becd,edf->becf", buf, wg)
+    return torch.einsum("becf,efd->becd", F.silu(g) * h, wo)
+
+
+def moe_scatter_ref(x, lin, n_slots: int):
+    """Plain version of the scatter kernel.  x: (B, S, D); lin: (B, S, K)
+    flat slot indices (``n_slots`` is the trash slot) -> buf (B, n_slots + 1,
+    D) in x's dtype: row ``lin[b, s, k]`` holds x[b, s]; every other row,
+    the trash row included, is zero.  Kept slots are unique."""
+    B, S, D = x.shape
+    K = lin.shape[-1]
+    buf = torch.zeros(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
+    lin = lin.long().reshape(B, S * K)
+    keep = lin < n_slots
+    b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
+    src = x[:, :, None, :].expand(B, S, K, D).reshape(B, S * K, D)
+    buf[b_idx[keep], lin[keep]] = src[keep]
+    return buf
+
+
+def moe_gather_ref(out, lin, gates):
+    """Plain version of the gather kernel.  out: (B, n_slots, D) expert
+    outputs; lin: (B, S, K); gates: (B, S, K) float32, zero for dropped
+    assignments -> y (B, S, D) in out's dtype, ``y[b, s] = sum_k
+    out[b, min(lin, n_slots - 1)] * gates`` in float32.  Terms whose gate
+    is zero are skipped (never ``0 * out``), as in the kernel."""
+    B, n_slots, D = out.shape
+    S, K = lin.shape[1:]
+    idx = torch.clamp(lin.long(), max=n_slots - 1).reshape(B, S * K)
+    rows = torch.gather(out, 1, idx[..., None].expand(B, S * K, D))
+    rows = rows.reshape(B, S, K, D).float() * gates[..., None]
+    rows = torch.where(gates[..., None] != 0, rows, torch.zeros_like(rows))
+    return rows.sum(2).to(out.dtype)
+
+
+def moe_scatter(x, gate_vals, expert_idx, wi, wg, wo, *, capacity: int,
+                scatter_rows=moe_scatter_ref, gather_rows=moe_gather_ref):
+    """Scatter/gather dispatch, the counterpart of the reference's
+    ``moe_scatter_xla`` and of its Pallas path: x (B, S, D); gate_vals /
+    expert_idx (B, S, K); wi/wg (E, D, F); wo (E, F, D) -> y (B, S, D).
+    Slot assignment, ``scatter_rows``, the expert FFN, ``gather_rows``
+    (float32 accumulation); the CUDA route passes its two kernels for the
+    plain versions."""
+    B, S, D = x.shape
+    E, K, C = wi.shape[0], expert_idx.shape[-1], capacity
+    lin, keep = moe_positions(expert_idx, E, C)
+    lin = lin.reshape(B, S, K)
+    buf = scatter_rows(x, lin, E * C)[:, :-1].reshape(B, E, C, D)
+    out = expert_ffn(buf, wi, wg, wo).reshape(B, E * C, D)
+    gates = (keep.reshape(B, S, K) * gate_vals).float()
+    return gather_rows(out, lin, gates)
+
+
+def moe_dense_ref(x, gate_vals, expert_idx, wi, wg, wo, *, capacity: int):
+    """Capacity-bucketed dense-einsum dispatch, the oracle (the reference's
+    ``moe_dense_ref``): a one-hot (B, S, K, E*C) dispatch tensor
+    contracted against x and, after the expert FFN, against the gates.
+    Dropped assignments land in the trash column, which is sliced off.
+    What the MoE kernels' backward pass differentiates."""
+    B, S, D = x.shape
+    E, K, C = wi.shape[0], expert_idx.shape[-1], capacity
+    lin, _ = moe_positions(expert_idx, E, C)
+    oh = F.one_hot(lin.long(), E * C + 1).to(x.dtype)[..., :-1]
+    disp = oh.reshape(B, S, K, E * C)
+    buf = torch.einsum("bse,bsd->bed", disp.sum(2), x).reshape(B, E, C, D)
+    out = expert_ffn(buf, wi, wg, wo)
+    comb = torch.einsum("bske,bsk->bse", disp, gate_vals.to(x.dtype))
+    return torch.einsum("bse,bed->bsd", comb, out.reshape(B, E * C, D))

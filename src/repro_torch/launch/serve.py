@@ -4,9 +4,12 @@
     python -m repro_torch.launch.serve --arch llama3.2-1b \
         --width 0 --depth 0 --vocab 0 --batch 8 --requests 16 \
         --prompt-len 256 --gen 32
+    python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+        --width 0 --depth 0 --vocab 0 --experts 0 --kv-block-size 0
 
-``--width/--depth/--vocab`` shrink the config (0 keeps the published
-value; the defaults are a small CPU-sized model).  Weights are random,
+``--width/--depth/--vocab/--experts`` shrink the config (0 keeps the
+published value; the defaults are a small CPU-sized model).
+``--kv-block-size 0`` serves from dense per-slot KV rows.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
 a numpy generator with the same seed.  ``--device cpu`` runs the plain
 PyTorch versions on the CPU; without it the command needs a GPU.
@@ -49,12 +52,14 @@ def parser() -> argparse.ArgumentParser:
                     help="static-batch oracle: admit a full batch, drain "
                          "it, admit the next")
     ap.add_argument("--kv-block-size", type=int, default=128,
-                    help="tokens per paged-KV block")
+                    help="tokens per paged-KV block (0 = dense per-slot "
+                         "max_len rows)")
     ap.add_argument("--kv-pool-blocks", type=int, default=0,
                     help="usable blocks in the pool (0 = dense-equivalent)")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=-1,
                     help="per-step prompt-token budget of the mixed step "
-                         "(-1 = 2 * block size; 0 = stall-the-world)")
+                         "(-1 = 2 * block size paged, 256 dense; 0 = "
+                         "stall-the-world)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable copy-on-write prefix sharing")
     ap.add_argument("--prefix-evict", default="lru",
@@ -64,6 +69,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--width", type=int, default=256)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=512)
+    ap.add_argument("--experts", type=int, default=4,
+                    help="experts of an MoE arch (top-k capped to it; 0 "
+                         "keeps the published count)")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -76,12 +84,12 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
-                        args.vocab)
+                        args.vocab, args.experts)
     n_requests = args.requests or 2 * args.batch
     max_len = args.prompt_len + args.gen
     chunk = args.prefill_chunk_tokens
     if chunk < 0:
-        chunk = 2 * args.kv_block_size
+        chunk = 2 * args.kv_block_size if args.kv_block_size else 256
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = lm.init_lm(arch, dtype, generator=gen, device=device)
     requests = make_requests(arch.vocab, n_requests, args.prompt_len,
@@ -104,11 +112,13 @@ def main(argv=None) -> dict:
     out_tokens = sum(len(c.tokens) for c in completions)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
+    kv_desc = (f"paged(bs={engine.block_size}, "
+               f"peak_blocks={engine.peak_blocks_in_use}"
+               + (f", quant={engine.kv_quant}" if engine.kv_quant else "")
+               + ")" if engine.paged else "dense")
     print(f"arch={arch.name} slots={args.batch} requests={n_requests} "
           f"prompt={args.prompt_len} gen<={args.gen} mode={mode} "
-          f"dtype={args.dtype} device={where} kv=paged(bs={engine.block_size}"
-          f", peak_blocks={engine.peak_blocks_in_use}"
-          + (f", quant={engine.kv_quant}" if engine.kv_quant else "") + ")")
+          f"dtype={args.dtype} device={where} kv={kv_desc}")
     print(f"kv reserved: {engine.kv_bytes_reserved / 2**20:.2f} MiB")
     print(f"warmup: {t_warm:.2f} s (excluded from the rates below)")
     if engine.chunked:

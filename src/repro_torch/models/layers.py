@@ -113,21 +113,19 @@ def _scatter_rows(pool, phys, rows):
     pool.view(NB * bs, *pool.shape[2:])[phys] = rows
 
 
-def _later(what: str):
-    return NotImplementedError(
-        f"{what} is ported in the dense-cache decode slice (ROADMAP.md); "
-        f"the port serves through the paged KV cache")
-
-
 def attention(p: dict, x, arch, *, positions, causal: bool = True,
               kv_cache: dict | None = None, cache_pos=None,
               block_tables=None, q_lens=None):
     """GQA attention block (qkv projection + core).
 
-    Three forms, as in the reference:
+    Four forms, as in the reference:
 
-    * no cache, or a prefill (scalar ``cache_pos == 0``) into a dense
-      cache row: causal self-attention through ``flash_attention``;
+    * no cache, or a prefill (scalar ``cache_pos == 0``, S > 1) into a
+      dense cache row: causal self-attention through ``flash_attention``;
+    * dense single-token decode: ``kv_cache`` leaves are per-slot rows
+      (B, max_len, KH, hd); row b's token is written at ``cache_pos[b]``
+      (or at the scalar ``cache_pos`` for every row) and attended through
+      ``decode_attention`` over positions < ``positions[..., -1] + 1``;
     * paged single-token decode: ``kv_cache`` leaves are a block pool
       (NB, block_size, KH, hd), ``block_tables`` (B, pages) maps row b's
       logical pages to pool blocks, ``cache_pos`` is (B,).  The new token
@@ -138,8 +136,9 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
       padding writes are dropped (dense) or parked in the trash block 0
       (paged).
 
-    Dense single-token decode and mid-sequence continuation raise
-    ``NotImplementedError`` (the dense-cache decode slice).  Returns (out (B, S, H, hd), cache).
+    Continuing a dense cache mid-sequence (scalar ``cache_pos > 0`` with
+    S > 1; no engine path issues it) raises ``NotImplementedError``.
+    Returns (out (B, S, H, hd), cache).
     """
     B, S, _ = x.shape
     KH, H, hd = arch.n_kv_heads, arch.n_heads, arch.hd
@@ -239,11 +238,30 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
                                        k_scale=cks, v_scale=cvs)
         return o.reshape(B, 1, H, hd), kv_cache
 
+    if kv_cache is not None and S == 1:
+        # dense decode; the reference writes every row here, q_lens or not
+        # (a row that advances no token writes its own slot's row, at a
+        # position its next real write overwrites)
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        if per_slot:
+            rows = torch.arange(B, device=x.device)
+            ck[rows, cache_pos.long()] = k[:, 0].to(ck.dtype)
+            cv[rows, cache_pos.long()] = v[:, 0].to(cv.dtype)
+        else:
+            cp = cache_pos.long() if torch.is_tensor(cache_pos) else cache_pos
+            ck[:, cp] = k[:, 0].to(ck.dtype)
+            cv[:, cp] = v[:, 0].to(cv.dtype)
+        o = ops.decode_attention(q.reshape(B, KH, G, hd), ck.transpose(1, 2),
+                                 cv.transpose(1, 2), positions[..., -1] + 1)
+        return o.reshape(B, 1, H, hd), kv_cache
+
     if kv_cache is not None:
-        if not (isinstance(cache_pos, int) and cache_pos == 0):
-            raise _later("single-token decode over a dense cache "
-                         "(decode_attention)" if per_slot or S == 1
-                         else "continuing a dense cache mid-sequence")
+        if per_slot or not (isinstance(cache_pos, int) and cache_pos == 0):
+            raise NotImplementedError(
+                "continuing a dense cache mid-sequence (cache_pos > 0 with "
+                "S > 1) arrives with the mid-sequence dense continuation "
+                "item (ROADMAP.md, A); the engine's dense path prefills "
+                "from 0 and decodes one token at a time")
         ck, cv = kv_cache["k"], kv_cache["v"]
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)

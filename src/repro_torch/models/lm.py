@@ -1,6 +1,6 @@
 """Decoder-only LM assembly: the counterpart of ``repro.models.lm`` for
-the dense (``attn`` + SwiGLU) and RWKV6 (``rwkv`` time mix + channel
-mix) patterns.
+the dense (``attn`` + SwiGLU), MoE (``attn`` + top-k experts) and RWKV6
+(``rwkv`` time mix + channel mix) patterns.
 
 Parameters are a dict tree with every per-layer tensor stacked over
 pattern units (leading dim ``n_units``), exactly the reference's layout;
@@ -22,9 +22,9 @@ Entry points:
 
 ``plan`` (a searched ``ModelPlan`` in the reference) only places
 tensors across devices; on one device it changes no arithmetic, and the
-port accepts it for signature parity.  Mamba mixers, MoE FFNs and
-modality frontends raise ``NotImplementedError`` naming the slice that
-brings them; so does serving an RWKV6 model.
+port accepts it for signature parity.  Mamba mixers and modality
+frontends raise ``NotImplementedError`` naming the slice that brings
+them; so does serving an RWKV6 model.
 """
 
 from __future__ import annotations
@@ -35,14 +35,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import layers as L
+from . import moe as M
 from . import recurrent as Rc
 from .arch import ArchConfig
 
-_LATER = {"mamba": "the Mamba slice", "moe": "the MoE slice"}
+_LATER = {"mamba": "the Mamba slice"}
 
 
 def check_arch(arch: ArchConfig) -> None:
-    """Raise for anything beyond the dense and RWKV6 decoder-only LMs."""
+    """Raise for anything beyond the dense, MoE and RWKV6 decoder-only
+    LMs."""
     for spec in arch.pattern:
         for kind in (spec.mixer, spec.ffn):
             if kind in _LATER:
@@ -105,7 +107,10 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
             lp["cmix"] = Rc.init_rwkv_cmix(arch, dtype, lead=n, **kw)
         else:
             lp["attn"] = L.init_attention(arch, dtype, lead=n, **kw)
-            lp["mlp"] = L.init_mlp(arch, dtype, lead=n, **kw)
+            if spec.ffn == "moe":
+                lp["moe"] = M.init_moe(arch, dtype, lead=n, **kw)
+            else:
+                lp["mlp"] = L.init_mlp(arch, dtype, lead=n, **kw)
         unit[f"l{j}"] = lp
     return {
         "embed": L.init_embed(arch, dtype, **kw),
@@ -121,8 +126,10 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
 def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
                  causal=True, cache=None, cache_pos=None, block_tables=None,
                  q_lens=None, time_chunk=64):
-    """Returns (h, new_cache) for one pattern unit."""
+    """Returns (h, aux_loss, new_cache) for one pattern unit; ``aux_loss``
+    sums the unit's MoE load-balancing losses (0 without MoE layers)."""
     new_cache: dict = {}
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, spec in enumerate(arch.pattern):
         lp = unit_params[f"l{j}"]
         lc = cache.get(f"l{j}") if cache is not None else None
@@ -145,22 +152,35 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
             block_tables=block_tables, q_lens=q_lens)
         h = h + L.attention_out(lp["attn"], a)
         hn = L.apply_norm(lp["ln2"], h)
-        h = h + L.mlp(lp["mlp"], hn)
+        if spec.ffn == "moe":
+            if cache is None:
+                # the reference's inner remat: during the unit's backward
+                # recompute one MoE layer's dispatch buffers live at a time
+                y, a_loss = checkpoint(
+                    lambda p_, h_: M.moe_ffn(p_, h_, arch), lp["moe"], hn,
+                    use_reentrant=False, preserve_rng_state=False)
+            else:
+                y, a_loss = M.moe_ffn(lp["moe"], hn, arch)
+            aux = aux + a_loss
+        else:
+            y = L.mlp(lp["mlp"], hn)
+        h = h + y
         new_cache[f"l{j}"] = {"kv": kvc} if kvc is not None else {}
-    return h, new_cache
+    return h, aux, new_cache
 
 
 def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
               cache=None, cache_pos=None, block_tables=None, q_lens=None,
               time_chunk=64, remat=False):
-    """Walk the units in order; returns (h, cache).  Unit u's parameters
-    and cache are the views ``leaf[u]`` of the stacked trees, so cache
-    writes land in the stacked cache itself.
+    """Walk the units in order; returns (h, aux_loss, cache).  Unit u's
+    parameters and cache are the views ``leaf[u]`` of the stacked trees,
+    so cache writes land in the stacked cache itself.
 
     ``remat`` (training, no cache) runs each unit under
     ``torch.utils.checkpoint``: the backward pass keeps only each unit's
     input and recomputes the rest, the reference's ``"nothing"`` remat
     policy."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(arch.n_units):
         unit_params = tree_map(lambda a: a[u], stack_params)
         unit_cache = (tree_map(lambda a: a[u], cache)
@@ -169,12 +189,14 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
                   cache_pos=cache_pos, block_tables=block_tables,
                   q_lens=q_lens, time_chunk=time_chunk)
         if remat and cache is None:
-            h = checkpoint(lambda h_, p_: unit_forward(h_, p_, arch, **kw)[0],
-                           h, unit_params, use_reentrant=False,
-                           preserve_rng_state=False)
+            h, a = checkpoint(
+                lambda h_, p_: unit_forward(h_, p_, arch, **kw)[:2],
+                h, unit_params, use_reentrant=False,
+                preserve_rng_state=False)
         else:
-            h, _ = unit_forward(h, unit_params, arch, **kw)
-    return h, cache
+            h, a, _ = unit_forward(h, unit_params, arch, **kw)
+        aux = aux + a
+    return h, aux, cache
 
 
 # --------------------------------------------------------------------------- #
@@ -195,11 +217,9 @@ def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, _ = run_stack(h, params["stack"], arch, positions=positions,
-                     causal=True, time_chunk=time_chunk, remat=remat)
-    h = L.apply_norm(params["final_norm"], h)
-    # dense and RWKV layers add no auxiliary loss (MoE's arrives with it)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    h, aux, _ = run_stack(h, params["stack"], arch, positions=positions,
+                          causal=True, time_chunk=time_chunk, remat=remat)
+    return L.apply_norm(params["final_norm"], h), aux
 
 
 def forward(params, batch: dict, arch: ArchConfig, plan=None, *,
@@ -327,7 +347,7 @@ def prefill(params, batch: dict, cache: dict, arch: ArchConfig):
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, cache = run_stack(h, params["stack"], arch, positions=positions,
+    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
                          causal=True, cache=cache, cache_pos=0)
     return _head(params, h[:, -1:, :], arch), cache
 
@@ -357,7 +377,7 @@ def decode_step(params, token, cache: dict, pos, arch: ArchConfig, *,
     if block_tables is not None and cache_pos.ndim != 1:
         raise ValueError("paged decode (block_tables) requires a (B,) "
                          "per-slot pos vector")
-    h, cache = run_stack(h, params["stack"], arch, positions=positions,
+    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
                          causal=True, cache=cache, cache_pos=cache_pos,
                          block_tables=block_tables)
     return _head(params, h, arch), cache
@@ -390,7 +410,7 @@ def step(params, tokens, cache: dict, pos, arch: ArchConfig, *,
         q_lens = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
     h = L.embed(params["embed"], tokens)
     positions = pos[:, None] + torch.arange(T, device=tokens.device)[None, :]
-    h, cache = run_stack(h, params["stack"], arch, positions=positions,
+    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
                          causal=True, cache=cache, cache_pos=pos,
                          block_tables=block_tables, q_lens=q_lens)
     return _head(params, h, arch), cache

@@ -1,5 +1,6 @@
 """Continuous-batching serving over a paged KV pool (chunked prefill
-riding the mixed step, copy-on-write prefix sharing, int8 blocks): the
+riding the mixed step, copy-on-write prefix sharing, int8 blocks) or
+dense per-slot KV rows: the
 counterpart of ``repro.serve``.  ``paging`` and ``scheduler`` are copies
 of the reference's pure-Python modules."""
 

@@ -22,17 +22,17 @@ class ServeConfig:
     * ``max_len`` — per-request cache row budget (prompt + generation).
     * ``policy`` — ``"continuous"`` (admit into any free slot mid-decode)
       or ``"static"`` (lockstep batches, the oracle).
-    * ``kv_block_size`` — tokens per paged-KV block.  The dense per-slot
-      layout (0 / None) needs the dense decode kernel of the dense-cache
-      decode slice (ROADMAP.md).
+    * ``kv_block_size`` — tokens per paged-KV block; 0 / None is the
+      dense per-slot layout (one ``max_len`` row per slot).
     * ``kv_pool_blocks`` — usable blocks in the pool (None = dense-
       equivalent capacity ``max_batch * ceil(max_len / block)``).
     * ``prefill_chunk_tokens`` — per-step prompt-token budget of the
-      mixed step (None = two KV blocks; 0 = stall-the-world prefill).
+      mixed step (None = two KV blocks paged, 256 dense; 0 = stall-the-
+      world prefill).
     * ``dtype`` — cache / activation dtype.
     * ``prefix_cache`` — share identical whole prompt blocks through the
-      refcounted copy-on-write prefix index; effective with chunked
-      prefill, inert otherwise.
+      refcounted copy-on-write prefix index; effective with the paged
+      cache and chunked prefill, inert otherwise.
     * ``prefix_evict`` — ``"lru"`` keeps published blocks warm after
       their users retire, ``"none"`` shares only between live requests.
     * ``kv_quant`` — ``"int8"`` stores pool blocks as int8 with per-(slot,

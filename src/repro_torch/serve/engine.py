@@ -1,23 +1,24 @@
-"""Continuous-batching serve engine over a paged KV pool: the
-counterpart of ``repro.serve.engine``.
+"""Continuous-batching serve engine: the counterpart of
+``repro.serve.engine``.
 
-* KV lives in one pool of fixed-size blocks plus a per-slot block table;
-  blocks bind lazily as a slot's position crosses a block boundary and
-  return to the free list on retire.  Physical block 0 is the trash
-  block that free slots' ignored writes land in.
+* Paged (``kv_block_size > 0``, the default): KV lives in one pool of
+  fixed-size blocks plus a per-slot block table; blocks bind lazily as a
+  slot's position crosses a block boundary and return to the free list
+  on retire.  Physical block 0 is the trash block that free slots'
+  ignored writes land in.
+* Dense (``kv_block_size=0``): one ``max_len`` KV row per slot; a
+  stall-the-world admission overwrites the slot's whole row.
 * Every step runs all ``max_batch`` slots as one ragged mixed batch:
   decoding slots advance one token, the oldest admitted slot still
   prefilling advances a prompt chunk of up to ``prefill_chunk_tokens``.
   ``prefill_chunk_tokens=0`` is stall-the-world admission (a batch-1
   prefill through the flash kernel, then a slot write).
 * Identical whole prompt blocks are shared between requests through the
-  refcounted copy-on-write prefix index.
+  refcounted copy-on-write prefix index (paged and chunked only).
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
 
-The cache is updated in place (the reference donated it to jit).  The
-dense per-slot layout (``kv_block_size=0``) needs the dense decode
-kernel, which arrives with the dense-cache decode slice (ROADMAP.md).
+The cache is updated in place (the reference donated it to jit).
 """
 
 from __future__ import annotations
@@ -42,20 +43,26 @@ def _is_kv_path(path) -> bool:
     return "kv" in path
 
 
-def write_slot(pool: dict, row: dict, slot, block_ids) -> dict:
-    """Admission write, in place: land a batch-1 prefill cache ``row``
-    (KV leaves (n_units, 1, nb * block_size, KH, hd), the prompt rounded
-    up to whole blocks) in pool blocks ``block_ids`` ((nb,) int64), each
-    overwritten in full.  An int8 pool quantizes the row's K/V on write
-    and scatters payload and scale rows into the same blocks; any other
-    leaf takes the slot-row overwrite at ``slot``."""
-    nb = block_ids.shape[0]
+def write_slot(pool: dict, row: dict, slot, block_ids=None) -> dict:
+    """Admission write, in place: land a batch-1 prefill cache ``row``.
+
+    Dense (``block_ids=None``): every leaf is (n_units, B, ...) against
+    the row's (n_units, 1, ...); slot ``slot``'s whole row is replaced,
+    positions past the prompt included, so nothing of its previous
+    occupant survives.
+
+    Paged: the row's KV leaves (n_units, 1, nb * block_size, KH, hd), the
+    prompt rounded up to whole blocks, land in pool blocks ``block_ids``
+    ((nb,) int64), each overwritten in full.  An int8 pool quantizes the
+    row's K/V on write and scatters payload and scale rows into the same
+    blocks; any other leaf takes the slot-row overwrite at ``slot``."""
+    nb = 0 if block_ids is None else block_ids.shape[0]
     for path, p in lm.tree_leaves(pool):
         r = row
         for key in path[:-1]:
             r = r[key]
         name = path[-1]
-        if not _is_kv_path(path):
+        if block_ids is None or not _is_kv_path(path):
             p[:, slot] = r[name][:, 0].to(p.dtype)
             continue
         n, _, bs = p.shape[:3]
@@ -92,7 +99,7 @@ def reset_slot_state(cache: dict, slot: int) -> dict:
 
 
 class ServeEngine:
-    """Drives generation over the paged KV pool.
+    """Drives generation over the paged KV pool or the dense slot rows.
 
     Usage::
 
@@ -111,11 +118,6 @@ class ServeEngine:
 
     def __init__(self, params, arch: ArchConfig, config: ServeConfig):
         lm.check_servable(arch)
-        if not config.kv_block_size:
-            raise NotImplementedError(
-                "the dense per-slot KV layout (kv_block_size=0) needs the "
-                "dense decode kernel, ported in the dense-cache decode slice "
-                "(ROADMAP.md)")
         self.params = params
         self.arch = arch
         self.config = config
@@ -123,29 +125,38 @@ class ServeEngine:
         self.max_batch = int(config.max_batch)
         self.max_len = int(config.max_len)
         self.dtype = config.dtype
-        self.block_size = int(config.kv_block_size)
+        self.block_size = int(config.kv_block_size or 0)
+        self.paged = self.block_size > 0
         kvq = config.kv_quant or "none"
         self.kv_quant = kvq if kvq != "none" else None
         if config.prefill_chunk_tokens is None:
-            self.chunk = 2 * self.block_size
+            self.chunk = 2 * self.block_size if self.paged else 256
         else:
             self.chunk = max(0, int(config.prefill_chunk_tokens))
         self.chunk = min(self.chunk, self.max_len)
         self.chunked = self.chunk > 0
         self._prefill, self._step = make_serve_fns(arch)
-        pages = -(-self.max_len // self.block_size)
-        usable = (int(config.kv_pool_blocks) if config.kv_pool_blocks
-                  else self.max_batch * pages)
-        self._alloc = BlockAllocator(usable + 1, self.block_size,
-                                     self.max_batch, pages)
-        self.cache = lm.init_paged_cache(
-            arch, usable + 1, self.block_size, self.max_batch, self.dtype,
-            kv_quant=self.kv_quant, device=self.device)
-        self.scheduler = SlotScheduler(
-            self.max_batch, config.policy, block_size=self.block_size,
-            total_blocks=usable, max_len=self.max_len,
-            pinned_blocks=lambda: self._alloc.pinned_shared)
-        use_prefix = config.prefix_cache and self.chunked
+        if self.paged:
+            pages = -(-self.max_len // self.block_size)
+            usable = (int(config.kv_pool_blocks) if config.kv_pool_blocks
+                      else self.max_batch * pages)
+            self._alloc = BlockAllocator(usable + 1, self.block_size,
+                                         self.max_batch, pages)
+            self.cache = lm.init_paged_cache(
+                arch, usable + 1, self.block_size, self.max_batch,
+                self.dtype, kv_quant=self.kv_quant, device=self.device)
+            self.scheduler = SlotScheduler(
+                self.max_batch, config.policy, block_size=self.block_size,
+                total_blocks=usable, max_len=self.max_len,
+                pinned_blocks=lambda: self._alloc.pinned_shared)
+        else:
+            self._alloc = None
+            self.cache = lm.init_cache(arch, self.max_batch, self.max_len,
+                                       self.dtype, device=self.device)
+            self.scheduler = SlotScheduler(self.max_batch, config.policy)
+        # prefix sharing needs blocks to point at and a chunk that can
+        # start at the first uncached token
+        use_prefix = config.prefix_cache and self.paged and self.chunked
         self.prefix = (PrefixCache(self._alloc, evict=config.prefix_evict)
                        if use_prefix else None)
         self.queue: deque[Request] = deque()
@@ -172,7 +183,7 @@ class ServeEngine:
 
     @property
     def peak_blocks_in_use(self) -> int:
-        return self._alloc.peak_in_use
+        return self._alloc.peak_in_use if self.paged else 0
 
     @property
     def prefix_hit_rate(self) -> float:
@@ -186,24 +197,32 @@ class ServeEngine:
         return self.prefix.tokens_saved if self.prefix is not None else 0
 
     def _prompt_row_len(self, prompt_len: int) -> int:
-        """The batch-1 prefill row: the prompt rounded up to whole
-        blocks."""
+        """The batch-1 prefill row: the prompt rounded up to whole blocks
+        (paged), or the whole ``max_len`` row a dense slot takes."""
+        if not self.paged:
+            return self.max_len
         return -(-prompt_len // self.block_size) * self.block_size
 
-    def _tables(self) -> torch.Tensor:
+    def _tables(self) -> torch.Tensor | None:
+        """The block tables on the device; None for the dense layout."""
+        if not self.paged:
+            return None
         return torch.as_tensor(self._alloc.tables, device=self.device)
 
     def _ints(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
 
     def submit(self, request: Request) -> None:
-        """Queue ``request``; a prompt longer than ``max_len``, or a
-        worst-case block need above the whole pool, is refused."""
+        """Queue ``request``; a prompt longer than ``max_len``, or (paged)
+        a worst-case block need above the whole pool, is refused."""
         plen = len(request.prompt)
         if plen > self.max_len:
             raise ValueError(
                 f"request {request.uid}: prompt length {plen} exceeds the "
                 f"cache row budget max_len={self.max_len}")
+        if not self.paged:
+            self.queue.append(request)
+            return
         need = self.scheduler.blocks_for(request)
         usable = self._alloc.num_blocks - 1
         if need > usable:
@@ -240,8 +259,9 @@ class ServeEngine:
         """Run every step shape the serve loop will issue once before
         anything is timed (builds and loads the kernels, warms cuBLAS's
         per-shape choices and the caching allocator); returns the seconds
-        spent.  The dummy traffic lands in the trash block (chunked) or in
-        blocks admission overwrites (stall-the-world)."""
+        spent.  The dummy traffic lands in the trash block or a dense row
+        position a real write overwrites (chunked), or in blocks or rows
+        admission overwrites (stall-the-world)."""
         t0 = time.perf_counter()
         zeros = self._ints(np.zeros(self.max_batch))
         if self.chunked:
@@ -264,9 +284,11 @@ class ServeEngine:
                     self.params,
                     {"tokens": torch.zeros((1, plen), dtype=torch.int64,
                                            device=self.device)}, row)
-                nb = -(-plen // self.block_size)
-                trash = torch.zeros((nb,), dtype=torch.int64,
-                                    device=self.device)
+                trash = None
+                if self.paged:
+                    nb = -(-plen // self.block_size)
+                    trash = torch.zeros((nb,), dtype=torch.int64,
+                                        device=self.device)
                 self.cache = write_slot(self.cache, row, 0, trash)
                 int(torch.argmax(logits[0, -1]))
             logits, self.cache = self._step(
@@ -310,13 +332,15 @@ class ServeEngine:
         req = self.queue.popleft()
         if self.chunked:
             attach, cached_len, reserved, pinned = self._prefix_plan(req)
-            if reserved + pinned > self.scheduler.free_block_budget:
+            if (self.paged and
+                    reserved + pinned > self.scheduler.free_block_budget):
                 # stale prefix credit (an earlier admit in this wave
                 # evicted a matched block): requeue, end the wave
                 self.queue.appendleft(req)
                 return None
-            slot = self.scheduler.admit(req, chunked=True, reserved=reserved,
-                                        cached_len=cached_len)
+            slot = self.scheduler.admit(
+                req, chunked=True, reserved=reserved if self.paged else None,
+                cached_len=cached_len)
             if self.prefix is not None:
                 for page, block in enumerate(attach):
                     self._alloc.attach(slot, page, block)
@@ -343,11 +367,13 @@ class ServeEngine:
         row = lm.init_cache(self.arch, 1, self._prompt_row_len(len(req.prompt)),
                             self.dtype, device=self.device)
         logits, row = self._prefill(self.params, {"tokens": tokens}, row)
-        nb = -(-len(req.prompt) // self.block_size)
-        ids = [self._alloc.alloc(slot, page) for page in range(nb)]
-        self.cache = write_slot(self.cache, row, slot,
-                                torch.as_tensor(ids, dtype=torch.int64,
-                                                device=self.device))
+        ids = None
+        if self.paged:
+            nb = -(-len(req.prompt) // self.block_size)
+            ids = torch.as_tensor(
+                [self._alloc.alloc(slot, page) for page in range(nb)],
+                dtype=torch.int64, device=self.device)
+        self.cache = write_slot(self.cache, row, slot, ids)
         first = int(torch.argmax(logits[0, -1]))
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += len(req.prompt)
@@ -371,7 +397,8 @@ class ServeEngine:
         if reason is None:
             return []
         self.scheduler.retire(slot)
-        self._alloc.free_slot(slot)       # blocks back to the free list;
+        if self.paged:
+            self._alloc.free_slot(slot)   # blocks back to the free list;
         self._tok[slot] = 0               # the table row points at trash
         self._pos[slot] = 0
         self.stats["retired"] += 1
@@ -399,7 +426,7 @@ class ServeEngine:
         bs = self.block_size
         for slot, st in active.items():
             g = int(q_lens[slot])
-            if g > 0:
+            if g > 0 and self.paged:
                 # bind every page this step writes; a write into a
                 # still-shared block copies it first (copy-on-write)
                 for page in range(st.pos // bs, (st.pos + g - 1) // bs + 1):
@@ -443,7 +470,8 @@ class ServeEngine:
         (prompts were prefilled whole at admission)."""
         t0 = time.perf_counter()
         for slot, st in active.items():
-            self._alloc.ensure(slot, st.pos)    # lazy boundary crossing
+            if self.paged:
+                self._alloc.ensure(slot, st.pos)    # lazy boundary crossing
         tok = torch.as_tensor(self._tok.astype(np.int64),
                               device=self.device)[:, None]
         logits, self.cache = self._step(

@@ -1,6 +1,7 @@
 """Serving step builders: the counterpart of ``repro.serve.fns``.
 
-``make_serve_fns`` returns ``(prefill, step)`` over the port's dense LM.
+``make_serve_fns`` returns ``(prefill, step)`` over the port's dense and
+MoE LMs.
 There is no jit and no plan: PyTorch runs eagerly on one device, and the
 cache is updated in place where the reference donated it to jit.
 """
@@ -17,7 +18,8 @@ def make_serve_fns(arch: ArchConfig):
     """Build ``(prefill, step)``.
 
     ``step(params, tokens, cache, pos, q_lens=None, block_tables=None)``
-    is the unified mixed step over a paged cache.  ``pos`` is a
+    is the unified mixed step over a paged cache (``block_tables`` given)
+    or the dense per-slot rows (``block_tables=None``).  ``pos`` is a
     scalar or a (B,) vector of per-slot positions; ``tokens`` is (B, T)
     with ``q_lens`` marking how many of the T columns each row advances.
 
@@ -46,18 +48,22 @@ def make_serve_fns(arch: ArchConfig):
         dev = tokens.device
         q_lens = torch.as_tensor(q_lens, dtype=torch.int32, device=dev)
         pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(B)
-        # 1. (B, 1) decode pass; the granted row is masked to q_lens == 0,
-        #    so its write is parked in the trash block.  (Over a dense
-        #    cache this pass raises until the dense-cache decode slice.)
+        # 1. (B, 1) decode pass; the granted row is masked to q_lens == 0:
+        #    a paged write is parked in the trash block, a dense one lands
+        #    at pos[g], inside the range the chunk pass overwrites
         dec_q = (q_lens == 1).to(torch.int32)
         logits, cache = _model_step(params, tokens[:, :1], cache, pos, dec_q,
                                     block_tables)
         # 2. (1, T) chunk pass on row g: the pool passes whole with row g's
-        #    table row
+        #    table row; dense rows pass as the views leaf[:, g:g+1], so the
+        #    chunk's writes land in the cache itself
         g = int(torch.argmax(q_lens))
-        chunk_logits, _ = _model_step(params, tokens[g:g + 1], cache,
-                                      pos[g:g + 1], q_lens[g:g + 1],
-                                      block_tables[g:g + 1])
+        if block_tables is None:
+            row, bt = lm.tree_map(lambda a: a[:, g:g + 1], cache), None
+        else:
+            row, bt = cache, block_tables[g:g + 1]
+        chunk_logits, _ = _model_step(params, tokens[g:g + 1], row,
+                                      pos[g:g + 1], q_lens[g:g + 1], bt)
         # q_lens[g] == T: the chunk's last column is row g's next token
         logits[g, 0] = chunk_logits[0, -1].to(logits.dtype)
         return logits, cache

@@ -13,13 +13,16 @@ at different places).  WKV6 outputs grow with the decayed sum over the
 sequence, so its tolerances (1e-5 float32, 1e-2 bfloat16) are relative
 to the largest output.  Gradients of the kernels' autograd Functions
 are the plain versions' own gradients at the same inputs: 1e-5 relative.
+The MoE scatter is a copy (exact); the MoE op's output runs the expert
+FFN through cuBLAS on the card and on the CPU in the plain op, so it is
+held at 2e-5 of its largest value in float32.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import decode_attention, moe_dispatch, ops, ref
 from repro_torch.kernels import rwkv6_scan
 
 
@@ -191,3 +194,126 @@ def test_cuda_flash_gradient_matches_plain(cuda):
     for a, b in zip(got, want):
         tol = 1e-5 * float(b.abs().max())
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,T", [(8, 16, 1, 128, 1024),
+                                        (8, 8, 4, 64, 1024),
+                                        (3, 2, 8, 128, 77),
+                                        (2, 4, 2, 64, 1)])
+def test_cuda_decode_matches_plain(cuda, dt, B, KH, G, D, T):
+    """The dense cache (B, T, KH, D) passed transposed, as the engine does;
+    ragged kv_len from 1 to T."""
+    g = torch.Generator(device=cuda).manual_seed(T + G)
+    q = torch.randn(B, KH, G, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, T, KH, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, T, KH, D, generator=g, device=cuda).to(dt)
+    kv_len = torch.randint(1, T + 1, (B,), generator=g, device=cuda,
+                           dtype=torch.int32)
+    kv_len[0] = T
+    before = decode_attention.launches["decode_attention"]
+    got = ops.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2),
+                               kv_len)
+    want = ref.decode_attention_ref(q.reshape(B, KH * G, D),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    kv_len).reshape(B, KH, G, D)
+    torch.cuda.synchronize()
+    assert decode_attention.launches["decode_attention"] == before + 1
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    # a scalar kv_len broadcasts to every slot
+    got = ops.decode_attention(q, k.transpose(1, 2), v.transpose(1, 2), T)
+    want = ref.decode_attention_ref(q.reshape(B, KH * G, D),
+                                    k.transpose(1, 2), v.transpose(1, 2),
+                                    T).reshape(B, KH, G, D)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def moe_kernel_case(device, dt, *, B, S, K, E, C, D, seed=0):
+    """Routing of distinct top-k experts per token, its slot assignment
+    (drops where S * K / E exceeds C), the scatter source and gates."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.rand(B, S, E, generator=g, device=device).topk(K, -1)[1]
+    lin, keep = ref.moe_positions(idx, E, C)
+    x = torch.randn(B, S, D, generator=g, device=device).to(dt)
+    gates = torch.rand(B, S, K, generator=g, device=device)
+    gates = gates * keep.reshape(B, S, K)
+    return x, idx.to(torch.int32), lin.reshape(B, S, K), gates
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,K,E,C,D", [(8, 1, 8, 64, 8, 2048),
+                                         (1, 256, 8, 64, 40, 2048),
+                                         (2, 13, 2, 8, 4, 60)])
+def test_cuda_moe_scatter_gather_match_plain(cuda, dt, B, S, K, E, C, D):
+    x, _, lin, gates = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C,
+                                       D=D, seed=S)
+    n0 = dict(moe_dispatch.launches)
+    buf = moe_dispatch.moe_scatter_cuda(x, lin, E * C)
+    torch.testing.assert_close(buf, ref.moe_scatter_ref(x, lin, E * C),
+                               atol=0, rtol=0)
+    out = torch.randn(B, E * C, D, device=cuda).to(dt)
+    out[:, 1::7] = float("nan")        # rows no kept assignment reads
+    used = torch.zeros(B, E * C, dtype=torch.bool, device=cuda)
+    used.scatter_(1, lin.reshape(B, -1).long().clamp(max=E * C - 1),
+                  gates.reshape(B, -1) != 0)
+    out = torch.where(used[..., None], out.nan_to_num(), out)
+    y = moe_dispatch.moe_gather_cuda(out, lin, gates)
+    want = ref.moe_gather_ref(out, lin, gates)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    assert moe_dispatch.launches == {k: v + 1 for k, v in n0.items()}
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(y.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_moe_op_matches_plain_and_its_gradient(cuda, dt):
+    B, S, K, E, C, D, F = 2, 24, 2, 8, 8, 64, 32
+    x, idx, _, _ = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C, D=D)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gv = torch.rand(B, S, K, generator=g, device=cuda).to(dt)
+    w = [(torch.randn(s, generator=g, device=cuda) / s[1] ** 0.5).to(dt)
+         for s in ((E, D, F), (E, D, F), (E, F, D))]
+    got = ops.moe_dispatch_combine(x, gv, idx, *w, capacity=C)
+    want = ref.moe_dense_ref(x, gv, idx, *w, capacity=C)
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[dt] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    if dt != torch.float32:
+        return
+    inputs = [x, gv, *w]
+    gout = torch.randn(B, S, D, generator=g, device=cuda)
+    n0 = dict(moe_dispatch.launches)
+    out, grads = _grads(lambda a, b, *ws: ops.moe_dispatch_combine(
+        a, b, idx, *ws, capacity=C), inputs, gout)
+    assert moe_dispatch.launches == {k: v + 1 for k, v in n0.items()}
+    ref_out, ref_grads = _grads(lambda a, b, *ws: ref.moe_dense_ref(
+        a, b, idx, *ws, capacity=C), inputs, gout)
+    for a, b in zip(grads, ref_grads):
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_and_moe_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(2, 2, 1, 32, device=cuda)
+    kv = torch.zeros(2, 2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.decode_attention(q, kv, kv, 3)
+    q = torch.zeros(2, 2, 1, 64, device=cuda)
+    kv = torch.zeros(2, 2, 64, 8, device=cuda).transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous in the head dim"):
+        ops.decode_attention(q, kv, kv, 3)
+    x = torch.zeros(1, 4, 8, device=cuda, dtype=torch.float64)
+    lin = torch.zeros(1, 4, 2, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        moe_dispatch.moe_scatter_cuda(x, lin, 8)
+    with pytest.raises(ValueError, match="int32"):
+        moe_dispatch.moe_scatter_cuda(x.float(), lin.long(), 8)

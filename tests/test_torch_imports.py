@@ -35,15 +35,18 @@ sys.exit(1 if bad or missing else 0)
 # one of these is not among them
 MODULES = [
     "repro_torch.bridge", "repro_torch.checkpoint.manager",
-    "repro_torch.configs.rwkv6_1b6", "repro_torch.core.scan",
-    "repro_torch.data.pipeline", "repro_torch.device",
-    "repro_torch.kernels.build", "repro_torch.kernels.flash_attention",
+    "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.rwkv6_1b6",
+    "repro_torch.core.scan", "repro_torch.data.pipeline",
+    "repro_torch.device", "repro_torch.kernels.build",
+    "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe_dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
     "repro_torch.launch.serve", "repro_torch.launch.train",
     "repro_torch.models.layers", "repro_torch.models.lm",
-    "repro_torch.models.recurrent", "repro_torch.optim.adamw",
-    "repro_torch.serve.engine", "repro_torch.train.step",
+    "repro_torch.models.moe", "repro_torch.models.recurrent",
+    "repro_torch.optim.adamw", "repro_torch.serve.engine",
+    "repro_torch.serve.fns", "repro_torch.train.step",
 ]
 
 
@@ -81,6 +84,23 @@ def test_entry_points_need_a_gpu_or_an_explicit_cpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(["--steps", "1", "--width", "64", "--depth", "2",
                         "--vocab", "64", "--ckpt-every", "0"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--kv-block-size", "0"],
+                                   ["--kv-block-size", "0",
+                                    "--prefill-chunk-tokens", "0"]],
+                         ids=["paged", "dense", "dense-stall"])
+def test_serve_launcher_serves_olmoe_on_cpu(extra, capsys):
+    from repro_torch.launch import serve
+    out = serve.main(["--device", "cpu", "--arch", "olmoe-1b-7b", "--batch",
+                      "2", "--requests", "3", "--prompt-len", "9", "--gen",
+                      "3", "--width", "64", "--depth", "2", "--vocab", "64",
+                      "--experts", "4"] + (extra or ["--kv-block-size", "4"]))
+    assert sorted(c.uid for c in out["completions"]) == [0, 1, 2]
+    assert all(len(c.tokens) == 3 for c in out["completions"])
+    first = capsys.readouterr().out.splitlines()[0]
+    assert ("kv=dense" in first) == bool(extra)
+    assert "kv=paged(bs=4" in first or extra
 
 
 def test_serve_launcher_runs_on_cpu_when_asked():

@@ -91,10 +91,17 @@ def test_dense_mixed_stream_matches_reference():
 
 
 def test_single_token_dense_decode_names_its_slice():
-    q = torch.zeros(1, 2, 2, 16)
-    kv = torch.zeros(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
-        ops.decode_attention(q, kv, kv, 3)
+    """The dense-cache decode slice has landed: the single-token form runs
+    (its plain version on the CPU) instead of raising."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((1, 2, 2, 16)).astype(np.float32)
+    kv = rng.standard_normal((1, 2, 8, 16)).astype(np.float32)
+    want = jops.decode_attention(jnp.asarray(q), jnp.asarray(kv),
+                                 jnp.asarray(kv), 3, block_k=8,
+                                 backend="interpret")
+    got = ops.decode_attention(_t(q), _t(kv), _t(kv), 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
 
 
 @pytest.mark.parametrize("causal,S,T", [(True, 48, 64), (True, 37, 37),

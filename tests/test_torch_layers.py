@@ -180,14 +180,27 @@ def test_attention_mixed_dense():
 
 
 def test_dense_single_token_decode_names_slice_2():
+    """Dense single-token decode (per-slot positions) now runs and equals
+    the reference; continuing a dense cache mid-sequence still raises,
+    naming its item."""
     arch = C.reduced("llama3_2_1b")
-    _, tp = _attn_params(arch)
-    _, tx = _x(arch, 2, 1)
-    tc = {"k": torch.zeros(2, 8, arch.n_kv_heads, arch.hd),
-          "v": torch.zeros(2, 8, arch.n_kv_heads, arch.hd)}
-    with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
-        L.attention(tp, tx, arch, positions=torch.tensor([[3], [4]]),
-                    kv_cache=tc, cache_pos=torch.tensor([3, 4]))
+    jp, tp = _attn_params(arch)
+    jx, tx = _x(arch, 2, 1)
+    shape = (2, 8, arch.n_kv_heads, arch.hd)
+    jc = {"k": jnp.zeros(shape), "v": jnp.zeros(shape)}
+    tc = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+    want, jc = JL.attention(jp, jx, arch, None,
+                            positions=jnp.asarray([[3], [4]]), kv_cache=jc,
+                            cache_pos=jnp.asarray([3, 4]))
+    got, tc = L.attention(tp, tx, arch, positions=torch.tensor([[3], [4]]),
+                          kv_cache=tc, cache_pos=torch.tensor([3, 4]))
+    _close(got, want)
+    for key in ("k", "v"):
+        _close(tc[key], jc[key])
+    _, tx3 = _x(arch, 2, 3)
+    with pytest.raises(NotImplementedError, match="mid-sequence"):
+        L.attention(tp, tx3, arch, positions=torch.arange(3, 6), kv_cache=tc,
+                    cache_pos=3)
 
 
 def test_mlp_embed_and_tied_head():

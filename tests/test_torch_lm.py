@@ -44,8 +44,9 @@ def test_configs_are_copies_of_the_reference(name):
 
 
 def test_other_archs_name_their_slice():
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        TC.get("olmoe-1b-7b")
+    TC.get("olmoe-1b-7b")                    # ported: MoE serving
+    with pytest.raises(NotImplementedError, match="multi-GPU plans"):
+        TC.get("phi3.5-moe-42b-a6.6b")
     with pytest.raises(NotImplementedError, match="Mamba slice"):
         TC.get("jamba-1.5-large-398b")
     rwkv = TC.reduced("rwkv6_1b6")           # trained, not yet served
@@ -53,9 +54,9 @@ def test_other_archs_name_their_slice():
         lm.init_paged_cache(rwkv, 3, 4, 2, device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
         TC.get("gpt-17")
-    moe = dataclasses.replace(C.reduced("olmoe_1b_7b"))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        lm.init_lm(moe, generator=torch.Generator().manual_seed(0),
+    jamba = dataclasses.replace(C.reduced("jamba_1_5_large"))
+    with pytest.raises(NotImplementedError, match="Mamba slice"):
+        lm.init_lm(jamba, generator=torch.Generator().manual_seed(0),
                    device="cpu")
 
 
@@ -105,12 +106,7 @@ def test_step_logits_over_caches(name, kind):
     tol = 1e-4 if kind == "int8" else TOL
     _close(got[0], want[0], tol)
     _close(got[1, :3], want[1, :3], tol)
-    if tables is None:
-        with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
-            lm.step(tp, torch.from_numpy(toks[:, :1]), tc,
-                    torch.from_numpy(q_lens), arch)
-        return
-    # then one single-token decode through the paged kernel path
+    # then one single-token decode through the paged or the dense kernel
     tok = rng.integers(0, arch.vocab, (3, 1))
     pos = q_lens.copy()
     want, jc = jlm.decode_step(jp, jnp.asarray(tok, jnp.int32), jc,
@@ -120,6 +116,11 @@ def test_step_logits_over_caches(name, kind):
     _close(got[:2], want[:2], tol)
     jnc = jax.tree.map(np.asarray, jc)["l0"]["kv"]
     tnc = params_to_numpy(tc)["l0"]["kv"]
+    if tables is None:                      # rows 0, 1 up to their depth
+        for key in jnc:
+            _close(tnc[key][:, 0, :7], jnc[key][:, 0, :7])
+            _close(tnc[key][:, 1, :4], jnc[key][:, 1, :4])
+        return
     for key in jnc:                         # blocks 1..5 hold live tokens
         a, b = tnc[key][:, 1:], jnc[key][:, 1:]
         if a.dtype == np.int8:

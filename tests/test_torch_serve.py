@@ -142,9 +142,12 @@ def test_engine_pool_layout_and_bytes(model):
 
 def test_engine_refuses_what_it_cannot_serve(model):
     arch, _, tp = model
-    with pytest.raises(NotImplementedError, match="dense-cache decode slice"):
-        ServeEngine(tp, arch, ServeConfig(max_batch=2, max_len=16,
-                                          kv_block_size=0))
+    dense = ServeEngine(tp, arch, ServeConfig(max_batch=2, max_len=16,
+                                              kv_block_size=0))
+    assert not dense.paged and dense.chunk == 16   # 256 capped at max_len
+    with pytest.raises(ValueError, match="exceeds"):
+        dense.submit(Request(uid=0, prompt=tuple(range(1, 20)),
+                             max_new_tokens=2))
     eng = ServeEngine(tp, arch, ServeConfig(max_batch=2, max_len=16,
                                             kv_block_size=BS))
     with pytest.raises(ValueError, match="exceeds"):
