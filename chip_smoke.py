@@ -17,19 +17,28 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    MoE scatter and gather f32 / bf16 at olmoe's decode shape (B 8, S 1,
    K 8, C 8) and chunk shape (B 1, S 256, C 40)), with ragged kv_len,
    tables that point at the trash block and a prompt length that is not
-   a multiple of 128; and at the train step's shapes (flash causal q
-   (8, 32, 256, 64), WKV6 (8, 32, 256, 64) f32 / bf16).  One JSON line per
-   phase: error and tolerance, the kernel's, the plain version's and the
-   library call's time, and the bound.  Then the gradients of the
-   kernels' autograd Functions (forward the kernel, backward the plain
-   version's gradient) against the plain versions' own autograd.
+   a multiple of 128; at jamba-1.5-large's shapes (paged and dense decode
+   q (8, 8, 8, 128), flash q (1, 64, 675, 128) against a 1024-token row,
+   MoE scatter and gather at D 8192, E 16, K 2, decode and chunk; the
+   selective scan f32 / bf16 at the chunk shape (1, 256, 16384, N 16) and
+   the decode shape (8, 1, 16384) with a carried state, a stall prefill
+   (1, 675) with a state, the stateless forward (1, 512), N 8; rows with
+   dt = 0 keep their state bitwise); and at the
+   train step's shapes (flash causal q (8, 32, 256, 64), WKV6 (8, 32, 256,
+   64) f32 / bf16).  One JSON line per phase: error and tolerance, the
+   kernel's, the plain version's and the library call's time, and the
+   bound.  Then the gradients of the kernels' autograd Functions (forward
+   the kernel, backward the plain version's gradient) against the plain
+   versions' own autograd.
 3. reference: a small llama served on the card and on the CPU (plain
    versions) with the same weights; first-token logits must agree.  The
-   same for a small olmoe (head dim 128) in its three modes, with the
-   experts each token chose compared first: logits are held only for the
-   requests whose routing agreed on both sides.  Then two train steps of
-   a small llama and a small rwkv6 on the card and on the CPU from the
-   same weights and batches: metrics, moments and parameters must agree.
+   same for a small olmoe (head dim 128) and a small jamba (4 layers in
+   its 2-layer Mamba / attention + MoE pattern, N 16) in their three
+   modes, with the experts each token chose compared first: logits are
+   held only for the requests whose routing agreed on both sides.  Then
+   two train steps of a small llama and a small rwkv6 on the card and on
+   the CPU from the same weights and batches: metrics, moments and
+   parameters must agree.
 4. serve: full-width llama3.2-1b in float32, ServeEngine with 8 slots and
    max_len 1024, 12 seeded requests (prompts 60-700 tokens, half behind a
    shared 256-token prefix, 32 new tokens each), in four modes:
@@ -40,8 +49,13 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    Then full-width olmoe-1b-7b (64 experts, top 8) in float32 on the same
    requests: (a) paged, chunked + prefix cache, (b) dense, chunked,
    (c) dense, stall-the-world; each must launch the MoE scatter and
-   gather and its decode kernel.  Each full-width run is profiled once
-   more for the device's busy share.
+   gather and its decode kernel.  Then jamba-1.5-large at its published
+   width cut to one card (2 layers: Mamba + dense FFN, attention + MoE;
+   11.9 B parameters) in float32 in the same three modes, each launching
+   the scan, the MoE kernels and its attention kernels, with the prefix
+   cache requested in (a) and off (a recurrent stack); then its
+   ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Each
+   full-width run is profiled once more for the device's busy share.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
    batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
    with the train command's settings.  Launch counts are reset before and
@@ -95,6 +109,14 @@ REF_LOGIT_TOL = {"a": 1e-4, "b": 1e-4, "c": 5e-3}
 # are relative to the largest output (sums in another order in float32;
 # one bf16 rounding of the output in bfloat16)
 WKV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the selective scan: float32 y and final state within 1e-5 of their
+# largest value (sums in another order, expf against torch.exp over
+# hundreds of steps); bfloat16 y within 1e-2 of its largest (one bf16
+# rounding of the output; the state stays float32, held at 1e-5)
+SCAN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# the SFUs make 16 exponentials a clock on each of the 132 SMs, at the
+# 1.98 GHz boost clock that the float32 peak above assumes
+SFU_EXP_S = 132 * 16 * 1.98e9
 # an autograd Function's backward is the plain version's gradient at the
 # same inputs: the same arithmetic, so only the forward may differ
 GRAD_TOL = 1e-5
@@ -176,9 +198,12 @@ class Timer:
         return total / iters
 
 
-def bound(bytes_: float, flops: float, dtype: str):
+def bound(bytes_: float, flops: float, dtype: str, exps: float = 0.0):
+    """The least time (ms) for the work and what sets it: bytes over the
+    memory rate, or operations over the peak for their type (exponentials
+    over the SFUs' rate, in their own pipe beside the FMAs)."""
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = max(flops / PEAK_FLOPS[dtype], exps / SFU_EXP_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -494,9 +519,111 @@ def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
     return results
 
 
+def mamba_inputs(torch, device, dtype, *, B, S, di=16384, N=16, state=True):
+    """The selective scan as jamba's mixer feeds it: dt = softplus(.) > 0,
+    A = -exp(A_log) with the reference's log(1..N) init plus noise, D near
+    1, dt/x/B/C in ``dtype``, a float32 initial state (the cache row).  B
+    and C are split views of one (B, S, rank + 2N) tensor, as ``mamba_mix``
+    splits ``x_proj``'s output (rank = di / 32: jamba's 512)."""
+    g = torch.Generator(device=device).manual_seed(SEED)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    dt = torch.nn.functional.softplus(rn(B, S, di) - 4).to(dtype)
+    rank = max(1, di // 32)
+    _, Bm, Cm = torch.split(rn(B, S, rank + 2 * N).to(dtype), [rank, N, N],
+                            dim=-1)
+    x = rn(B, S, di).to(dtype)
+    ar = torch.arange(1, N + 1, device=device, dtype=torch.float32)
+    A = -torch.exp(torch.log(ar).expand(di, N) + 0.1 * rn(di, N))
+    D = 1 + 0.1 * rn(di)
+    h0 = rn(B, di, N) if state else None
+    return dt, Bm, Cm, x, A, D, h0
+
+
+def phase_mamba(torch, timer, device, name, dtype, *, B, S, di=16384, N=16,
+                state=True):
+    """The scan kernel against its plain version at one of jamba's shapes:
+    y, and the final state when a state is carried."""
+    from repro_torch.kernels import ops, ref
+    dt_, Bm, Cm, x, A, D, h0 = mamba_inputs(torch, device, dtype, B=B, S=S,
+                                            di=di, N=N, state=state)
+    kw = dict(initial_state=h0, return_state=state)
+    got = ops.mamba_scan(dt_, Bm, Cm, x, A, D, **kw)
+    want = ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D, **kw)
+    torch.cuda.synchronize()
+    y, wy = (got[0], want[0]) if state else (got, want)
+    dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    scale = float(wy.float().abs().max())
+    err = float((y.float() - wy.float()).abs().max())
+    ok = err <= SCAN_TOL[dt] * scale
+    st = {}
+    if state:
+        hs = float(want[1].abs().max())
+        st = {"state_max_abs_err": float((got[1] - want[1]).abs().max()),
+              "max_abs_state": hs, "state_tol": SCAN_TOL["float32"] * hs}
+        ok &= st["state_max_abs_err"] <= st["state_tol"]
+    el = x.element_size()
+    steps = B * S * di
+    bytes_ = (el * (3 * steps + 2 * B * S * N) + 4 * (di * N + di)
+              + (2 * B * di * N * 4 if state else 0))
+    # per state and step: dt*A, (dt*x)*B, an FMA into h, an FMA into y;
+    # per channel and step: dt*x and the D*x FMA
+    flops = 6 * steps * N + 3 * steps
+    exps = steps * N
+    b_ms, b_by = bound(bytes_, flops, "float32", exps)
+    res = {"phase": name, "shape": {"B": B, "S": S, "di": di, "N": N,
+                                    "state": state},
+           "max_abs_err": err, "max_abs_out": scale,
+           "tol": SCAN_TOL[dt] * scale, **st,
+           "kernel_ms": timer(lambda: ops.mamba_scan(dt_, Bm, Cm, x, A, D,
+                                                     **kw), iters=20),
+           "kernel_call_ms": timer(lambda: ops.mamba_scan(
+               dt_, Bm, Cm, x, A, D, **kw), iters=20, host=True),
+           "plain_ms": timer(lambda: ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D,
+                                                        **kw),
+                             iters=3, warm=1),
+           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "bytes": bytes_, "flops": flops, "exps": exps}
+    emit(res)
+    if not ok:
+        fail(f"{name}: y err {err} (tol {SCAN_TOL[dt]} x {scale}), {st}")
+    return res
+
+
+def phase_mamba_dt0(torch, device):
+    """The decode shape with a carried state: rows whose dt is 0 (slots
+    that sit a mixed step out) come out with their initial state bitwise;
+    the others match the plain version's."""
+    from repro_torch.kernels import mamba_scan, ref
+    for dtype in (torch.float32, torch.bfloat16):
+        dt_, Bm, Cm, x, A, D, h0 = mamba_inputs(torch, device, dtype, B=8,
+                                                S=1)
+        idle = [1, 5]
+        dt_[idle] = 0
+        _, want = ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                                     return_state=True)
+        _, hN = mamba_scan.mamba_scan_cuda(dt_, Bm, Cm, x, A, D,
+                                           initial_state=h0,
+                                           return_state=True)
+        torch.cuda.synchronize()
+        name = str(dtype).replace("torch.", "")
+        same = all(torch.equal(hN[r], h0[r]) for r in idle)
+        moved = all(not torch.equal(hN[r], h0[r])
+                    for r in range(8) if r not in idle)
+        err = float((hN - want).abs().max())
+        tol = SCAN_TOL["float32"] * float(want.abs().max())
+        res = {"phase": f"mamba-dt0-{name}", "idle_rows": idle,
+               "idle_rows_bitwise_unchanged": same,
+               "other_rows_moved": moved, "state_max_abs_err": err,
+               "tol": tol}
+        emit(res)
+        if not (same and moved and err <= tol):
+            fail(f"mamba-dt0-{name}: {res}")
+
+
 def phase_grads(torch, device):
-    """Both autograd Functions at the train shapes: output and every input
-    gradient against the plain version's own autograd on the same inputs."""
+    """The autograd Functions (flash and WKV6 at the train shapes, MoE and
+    the scan at small ones): output and every input gradient against the
+    plain version's own autograd on the same inputs."""
     from repro_torch.kernels import ops, ref
 
     def run(fn, inputs, g):
@@ -531,8 +658,20 @@ def phase_grads(torch, device):
             lambda *a: ref.wkv6_scan(*a, chunk=TRAIN_CFG["time_chunk"]),
             list(wkv_inputs(torch, device, torch.float32))),
     }
+    # the scan with a carried state: y and the final state, flattened into
+    # one output so one cotangent covers both
+    m_in = list(mamba_inputs(torch, device, torch.float32, B=2, S=96, di=256))
+
+    def scan(fn):
+        return lambda *a: torch.cat([t.flatten() for t in fn(
+            *a[:6], chunk=32, initial_state=a[6], return_state=True)])
+
+    cases["mamba-grad-f32"] = (scan(ops.mamba_scan),
+                               scan(ref.mamba_scan_ref), m_in)
     for name, (kern, plain, inputs) in cases.items():
-        g = torch.randn(inputs[0].shape, generator=gen, device=device)
+        with torch.no_grad():
+            shape = plain(*inputs).shape
+        g = torch.randn(shape, generator=gen, device=device)
         t0 = time.perf_counter()
         got = run(kern, inputs, g)
         kern_s = time.perf_counter() - t0
@@ -630,6 +769,9 @@ SERVE_MODES = {"a": {}, "b": {"prefill_chunk_tokens": 0},
                "c": {"kv_quant": "int8"}, "dense": {"kv_block_size": 0}}
 OLMOE_MODES = {"a": {}, "b": {"kv_block_size": 0},
                "c": {"kv_block_size": 0, "prefill_chunk_tokens": 0}}
+# jamba's: the same three; in (a) the prefix cache is requested (the
+# ServeConfig default) and must stay off, the stack being recurrent
+JAMBA_MODES = OLMOE_MODES
 
 
 def serve_once(torch, params, arch, requests, *, mode, dtype, device,
@@ -665,6 +807,7 @@ def serve_once(torch, params, arch, requests, *, mode, dtype, device,
            "launches_per_step": {k: v / max(steps, 1)
                                  for k, v in counts.items()},
            "prefill_tokens_saved": eng.prefill_tokens_saved,
+           "prefix_cache_on": eng.prefix is not None,
            "kv_bytes_reserved": eng.kv_bytes_reserved,
            "finite": eng.finite}
     return res, eng, {c.uid: c.tokens for c in done}
@@ -754,26 +897,40 @@ def phase_reference(torch, device):
             fail(f"reference-{mode}: card vs CPU logits differ by {err}")
 
 
-def phase_reference_olmoe(torch, device):
-    """A small olmoe (2 layers, d 256, 2 heads of 128, 8 experts top 2,
-    d_ff 128) served on the card and on the CPU with the same weights, in
-    its three modes.  The experts each token chose are compared first: the
-    card and the CPU may break a near-tie of two router probabilities
-    differently, and a request with a different choice anywhere takes
-    another path.  First-token logits are held only for the requests
-    whose every routing choice agreed."""
+def small_moe_arch(name: str):
+    """The small MoE models served on the card and on the CPU: olmoe (2
+    layers, d 256, 2 heads of 128, 8 experts top 2, d_ff 128), and jamba
+    (4 layers in its 2-layer pattern -- Mamba + dense FFN, attention + MoE
+    -- d 256, 4 heads of 64 over 2 KV heads, 4 experts top 2, N 16)."""
     import dataclasses
     from repro_torch import configs
+    if name == "olmoe":
+        return dataclasses.replace(
+            configs.get("olmoe-1b-7b"), n_layers=2, d_model=256, n_heads=2,
+            n_kv_heads=2, d_ff=128, moe_d_ff=128, vocab=512, n_experts=8,
+            top_k=2)
+    return dataclasses.replace(
+        configs.get("jamba-1.5-large-398b"), name="jamba-small", n_layers=4,
+        pattern=configs.reduced("jamba_1_5_large").pattern, d_model=256,
+        n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, moe_d_ff=512,
+        vocab=512, n_experts=4, top_k=2, ssm_state=16)
+
+
+def phase_reference_moe(torch, device, name, modes, kernels):
+    """A small MoE model (:func:`small_moe_arch`) served on the card and on
+    the CPU with the same weights, in its three modes.  The experts each
+    token chose are compared first: the card and the CPU may break a
+    near-tie of two router probabilities differently, and a request with a
+    different choice anywhere takes another path.  First-token logits are
+    held only for the requests whose every routing choice agreed.  The
+    card run must launch ``kernels``."""
     from repro_torch.models import lm
-    arch = dataclasses.replace(
-        configs.get("olmoe-1b-7b"), n_layers=2, d_model=256, n_heads=2,
-        n_kv_heads=2, d_ff=128, moe_d_ff=128, vocab=512, n_experts=8,
-        top_k=2)
+    arch = small_moe_arch(name)
     params = lm.init_lm(arch, torch.float32,
                         generator=torch.Generator().manual_seed(SEED),
                         device="cpu")
     reqs = make_requests(arch.vocab, n=6, gen=8)
-    for mode in OLMOE_MODES:
+    for mode in modes:
         runs = {}
         for dev in (device, torch.device("cpu")):
             log = {"calls": [], "rows": {}}
@@ -783,7 +940,7 @@ def phase_reference_olmoe(torch, device):
                 res, eng, toks = serve_once(
                     torch, p, arch, reqs, mode=mode, dtype=torch.float32,
                     device=dev, max_batch=4, max_len=1024,
-                    modes=OLMOE_MODES, engine=routing_engine(log))
+                    modes=modes, engine=routing_engine(log))
             finally:
                 restore()
             runs[dev.type] = (eng.first_logits, toks, log["calls"],
@@ -803,7 +960,8 @@ def phase_reference_olmoe(torch, device):
         err = max((float((gl[u] - cl[u]).abs().max()) for u in held),
                   default=float("nan"))
         same = sum(x == y for u in held for x, y in zip(gt[u], ct[u]))
-        emit({"phase": f"reference-olmoe-{mode}",
+        tag = f"reference-{name}-{mode}"
+        emit({"phase": tag, "arch": arch.name,
               "moe_calls": [len(gc), len(cc)],
               "routing_choices": choices, "routing_choices_differing": flips,
               "requests_rerouted": sorted(moved), "requests_held": held,
@@ -812,14 +970,14 @@ def phase_reference_olmoe(torch, device):
               "tokens": sum(len(ct[u]) for u in held),
               "launches_card": launches})
         if len(gc) != len(cc) or not choices:
-            fail(f"reference-olmoe-{mode}: {len(gc)} MoE calls on the card, "
-                 f"{len(cc)} on the CPU")
+            fail(f"{tag}: {len(gc)} MoE calls on the card, {len(cc)} on "
+                 f"the CPU")
         if not held or not err <= REF_LOGIT_TOL["a"]:
-            fail(f"reference-olmoe-{mode}: card vs CPU logits differ by "
-                 f"{err} over {len(held)} requests with equal routing")
-        if min(launches["moe_scatter"], launches["moe_gather"]) <= 0:
-            fail(f"reference-olmoe-{mode}: the MoE kernels were not "
-                 f"launched ({launches})")
+            fail(f"{tag}: card vs CPU logits differ by {err} over "
+                 f"{len(held)} requests with equal routing")
+        if min(launches[k] for k in kernels) <= 0:
+            fail(f"{tag}: the kernels {kernels} were not all launched "
+                 f"({launches})")
 
 
 def busy_share(torch, fn):
@@ -970,6 +1128,83 @@ def phase_serve_olmoe(torch, device):
     if runs["a"][0]["prefill_tokens_saved"] <= 0:
         fail("serve-olmoe-a: no prefix-cache hit")
     del params, runs
+    return counts
+
+
+def jamba_one_card():
+    """jamba-1.5-large at its published width, cut in depth to one card:
+    ``reduced_arch`` to 2 layers, which takes the reduced config's 2-layer
+    pattern (layer 0 Mamba + dense SwiGLU, layer 1 attention + MoE) in
+    place of 72 layers of the period-8 block (one MoE layer alone holds
+    9.66 B parameters)."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.train import reduced_arch
+    return dataclasses.replace(
+        reduced_arch(configs.get("jamba-1.5-large-398b"), 0, 2, 0),
+        name="jamba-1.5-large-1card")
+
+
+def phase_serve_jamba(torch, device):
+    """Full-width jamba-1.5-large-1card (d 8192, 64 heads over 8 KV heads
+    of 128, d_ff 24576, 16 experts top 2, d_inner 16384, N 16, vocab 65536)
+    in float32, random weights, on the llama phase's requests, in its
+    three modes; each must launch the scan, the MoE scatter and gather and
+    its attention kernels, and in (a) the requested prefix cache must be
+    off.  Then ``lm.forward`` at (1, 512) under ``no_grad``: the TPU
+    kernel's own stateless form, one scan launch per Mamba layer."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    arch = jamba_one_card()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = lm.init_lm(arch, torch.float32, generator=gen, device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    print(f"# jamba weights: {n_params / 1e9:.2f} B in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB", flush=True)
+    base = ["mamba_scan", "moe_scatter", "moe_gather"]
+    need = {"a": ["paged_decode_attention", *base],
+            "b": ["decode_attention", *base],
+            "c": ["decode_attention", "flash_attention", *base]}
+    runs, counts = serve_modes(torch, params, arch,
+                               make_requests(arch.vocab), device,
+                               name="serve-jamba", modes=JAMBA_MODES,
+                               need=need, profile=tuple(JAMBA_MODES))
+    a = runs["a"][0]
+    if a["prefix_cache_on"] or a["prefill_tokens_saved"] != 0:
+        fail(f"serve-jamba-a: the prefix cache is on a recurrent stack "
+             f"({a['prefill_tokens_saved']} tokens saved)")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = torch.randint(0, arch.vocab, (1, 512), generator=gen,
+                           device=device)
+    n_mamba = arch.n_units * sum(l.mixer == "mamba" for l in arch.pattern)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, aux = lm.forward(params, {"tokens": tokens}, arch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = ops.launch_counts()
+    counts["forward-jamba"] = fwd
+    finite = bool(torch.isfinite(logits).all()) and math.isfinite(float(aux))
+    emit({"phase": "forward-jamba", "arch": arch.name, "params": n_params,
+          "tokens": list(tokens.shape), "logits": list(logits.shape),
+          "finite": finite, "wall_ms": wall * 1e3, "mamba_layers": n_mamba,
+          "launches": fwd,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if not finite or tuple(logits.shape) != (1, 512, arch.vocab):
+        fail(f"forward-jamba: finite {finite}, shape {tuple(logits.shape)}")
+    if fwd["mamba_scan"] != n_mamba or min(fwd["moe_scatter"],
+                                           fwd["flash_attention"]) <= 0:
+        fail(f"forward-jamba: launches {fwd} (want mamba_scan == "
+             f"{n_mamba})")
+    del params, logits
     return counts
 
 
@@ -1244,6 +1479,61 @@ def main() -> int:
         ("moe-chunk-bf16", lambda: phase_moe(
             torch, timer, device, "chunk-bf16", torch.bfloat16, B=1, S=256,
             C=40)),
+        ("paged-jamba-f32", lambda: phase_paged(
+            torch, timer, device, "paged-jamba-f32", torch.float32,
+            torch.float32, KH=8, G=8, D=128)),
+        ("paged-jamba-bf16", lambda: phase_paged(
+            torch, timer, device, "paged-jamba-bf16", torch.bfloat16,
+            torch.bfloat16, KH=8, G=8, D=128)),
+        ("flash-jamba-f32", lambda: phase_flash(
+            torch, timer, device, "flash-jamba-f32", torch.float32, S=675,
+            T=1024, H=64, KH=8, D=128)),
+        ("flash-jamba-bf16", lambda: phase_flash(
+            torch, timer, device, "flash-jamba-bf16", torch.bfloat16, S=675,
+            T=1024, H=64, KH=8, D=128)),
+        ("decode-jamba-f32", lambda: phase_decode(
+            torch, timer, device, "decode-jamba-f32", torch.float32, B=8,
+            KH=8, G=8, D=128)),
+        ("decode-jamba-bf16", lambda: phase_decode(
+            torch, timer, device, "decode-jamba-bf16", torch.bfloat16, B=8,
+            KH=8, G=8, D=128)),
+        ("moe-decode-jamba-f32", lambda: phase_moe(
+            torch, timer, device, "decode-jamba-f32", torch.float32, B=8,
+            S=1, C=8, K=2, E=16, D=8192)),
+        ("moe-decode-jamba-bf16", lambda: phase_moe(
+            torch, timer, device, "decode-jamba-bf16", torch.bfloat16, B=8,
+            S=1, C=8, K=2, E=16, D=8192)),
+        ("moe-chunk-jamba-f32", lambda: phase_moe(
+            torch, timer, device, "chunk-jamba-f32", torch.float32, B=1,
+            S=256, C=40, K=2, E=16, D=8192)),
+        ("moe-chunk-jamba-bf16", lambda: phase_moe(
+            torch, timer, device, "chunk-jamba-bf16", torch.bfloat16, B=1,
+            S=256, C=40, K=2, E=16, D=8192)),
+        ("mamba-chunk-f32", lambda: phase_mamba(
+            torch, timer, device, "mamba-chunk-f32", torch.float32, B=1,
+            S=256)),
+        ("mamba-chunk-bf16", lambda: phase_mamba(
+            torch, timer, device, "mamba-chunk-bf16", torch.bfloat16, B=1,
+            S=256)),
+        ("mamba-decode-f32", lambda: phase_mamba(
+            torch, timer, device, "mamba-decode-f32", torch.float32, B=8,
+            S=1)),
+        ("mamba-decode-bf16", lambda: phase_mamba(
+            torch, timer, device, "mamba-decode-bf16", torch.bfloat16, B=8,
+            S=1)),
+        ("mamba-prefill-f32", lambda: phase_mamba(
+            torch, timer, device, "mamba-prefill-f32", torch.float32, B=1,
+            S=675)),
+        ("mamba-forward-f32", lambda: phase_mamba(
+            torch, timer, device, "mamba-forward-f32", torch.float32, B=1,
+            S=512, state=False)),
+        ("mamba-forward-bf16", lambda: phase_mamba(
+            torch, timer, device, "mamba-forward-bf16", torch.bfloat16, B=1,
+            S=512, state=False)),
+        ("mamba-n8-f32", lambda: phase_mamba(
+            torch, timer, device, "mamba-n8-f32", torch.float32, B=1,
+            S=256, N=8)),
+        ("mamba-dt0", lambda: phase_mamba_dt0(torch, device)),
         ("flash-train-f32", lambda: phase_flash_train(torch, timer, device)),
         ("wkv6-f32", lambda: phase_wkv6(torch, timer, device, "wkv6-f32",
                                         torch.float32)),
@@ -1251,10 +1541,16 @@ def main() -> int:
                                          torch.bfloat16)),
         ("grads", lambda: phase_grads(torch, device)),
         ("reference", lambda: phase_reference(torch, device)),
-        ("reference-olmoe", lambda: phase_reference_olmoe(torch, device)),
+        ("reference-olmoe", lambda: phase_reference_moe(
+            torch, device, "olmoe", OLMOE_MODES,
+            ["moe_scatter", "moe_gather"])),
+        ("reference-jamba", lambda: phase_reference_moe(
+            torch, device, "jamba", JAMBA_MODES,
+            ["moe_scatter", "moe_gather", "mamba_scan"])),
         ("reference-train", lambda: phase_reference_train(torch, device)),
         ("serve", lambda: phase_serve(torch, device)),
         ("serve-olmoe", lambda: phase_serve_olmoe(torch, device)),
+        ("serve-jamba", lambda: phase_serve_jamba(torch, device)),
         ("train", lambda: phase_train(torch, device)),
     ]
     counts, seconds = {}, {}
@@ -1273,7 +1569,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
-        if name in ("serve", "serve-olmoe", "train"):
+        if name in ("serve", "serve-olmoe", "serve-jamba", "train"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)
@@ -1301,7 +1597,10 @@ def main() -> int:
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:33"),
             ("wkv6", "wkv6-f32", "src/repro_torch/csrc/rwkv6_scan.cu",
-             "src/repro/kernels/rwkv6_scan.py:28")]
+             "src/repro/kernels/rwkv6_scan.py:28"),
+            ("mamba_scan", "mamba-chunk-f32",
+             "src/repro_torch/csrc/mamba_scan.cu",
+             "src/repro/kernels/mamba_scan.py:139")]
     kernels = []
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})

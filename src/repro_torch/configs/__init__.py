@@ -1,7 +1,8 @@
 """Architecture configs the port runs (``--arch <id>``).
 
 Copies of ``repro.configs``' four dense configs (trained and served), of
-``olmoe_1b_7b`` (MoE, served) and of ``rwkv6_1b6`` (trained): each
+``olmoe_1b_7b`` (MoE, served), of ``rwkv6_1b6`` (trained) and of
+``jamba_1_5_large`` (Mamba + attention + MoE, served): each
 module defines ``ARCH`` (the published config) and ``reduced()`` (a
 small same-family config for CPU tests).
 The other ids of the reference exist there and raise here, naming the
@@ -13,7 +14,7 @@ from __future__ import annotations
 import importlib
 
 ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b",
-             "olmoe_1b_7b", "rwkv6_1b6"]
+             "olmoe_1b_7b", "rwkv6_1b6", "jamba_1_5_large"]
 
 # assignment ids -> module names (the reference's table)
 ALIASES = {
@@ -33,7 +34,6 @@ ALIASES = {
 LATER = {
     "phi3_5_moe_42b": "multi-GPU plans (its 42B parameters do not fit "
                       "one card)",
-    "jamba_1_5_large": "the Mamba slice",
     "internvl2_76b": "the VLM / encoder-decoder slice",
     "seamless_m4t_v2": "the VLM / encoder-decoder slice",
 }

@@ -19,6 +19,7 @@ import torch
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mamba_scan as _mamba
 from . import mha_stream
 from . import moe_dispatch as _moe
 from . import paged_decode_attention as _paged
@@ -26,7 +27,7 @@ from . import ref
 from . import rwkv6_scan as _wkv6
 
 _COUNTERS = (_flash.launches, _decode.launches, _paged.launches,
-             _moe.launches, _wkv6.launches)
+             _moe.launches, _wkv6.launches, _mamba.launches)
 
 
 def launch_counts() -> dict[str, int]:
@@ -141,3 +142,19 @@ def wkv6(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
     if _route(r, "wkv6"):
         return _wkv6.wkv6(r, k, v, w, u, chunk=chunk)
     return ref.wkv6_scan(r, k, v, w, u, chunk=chunk)
+
+
+def mamba_scan(dt, Bm, Cm, x, A, D, *, chunk: int = 64, initial_state=None,
+               return_state: bool = False):
+    """Selective-scan recurrence; dt/x: (B, S, di); Bm/Cm: (B, S, N); A:
+    (di, N); D: (di,).  Returns y, plus the final (B, di, N) float32 state
+    when ``return_state``.  A CUDA tensor goes to the kernel in every form
+    (stateless, an initial state in, the final state out); a CPU tensor to
+    the plain version."""
+    if _route(x, "mamba_scan"):
+        return _mamba.mamba_scan(dt, Bm, Cm, x, A, D, chunk=chunk,
+                                 initial_state=initial_state,
+                                 return_state=return_state)
+    return ref.mamba_scan_ref(dt, Bm, Cm, x, A, D, chunk=chunk,
+                              initial_state=initial_state,
+                              return_state=return_state)

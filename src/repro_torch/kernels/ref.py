@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the kernels: the counterparts of
 ``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``,
-``wkv6_ref``, ``wkv6_scan``) and of the MoE functions of
-``repro.kernels.moe_kernels`` (``moe_positions`` .. ``moe_scatter``).
+``wkv6_ref``, ``wkv6_scan``), of the MoE functions of
+``repro.kernels.moe_kernels`` (``moe_positions`` .. ``moe_scatter``) and
+of ``repro.kernels.mamba_scan.mamba_scan_ref``.
 
 They are what a CPU tensor runs, what ``chip_smoke.py`` holds each CUDA
 kernel against on the card, and what the kernels' backward passes
@@ -175,6 +176,43 @@ def wkv6_scan(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
                               (tm(r), tm(k), tm(v), tm(w)), chunk=chunk)
     out = out.permute(1, 2, 0, 3).to(r.dtype)                 # (B, H, T, N)
     return (out, Sn) if return_state else out
+
+
+def _mamba_step(A, Dskip):
+    """The reference's ``_step``: A (di, N), Dskip (di,) float32; the
+    (B, di, N) discretized terms are formed per step."""
+    def step(h, xs):
+        dt, Bm, Cm, x1 = (a.float() for a in xs)   # (B,di) (B,N) (B,N) (B,di)
+        dtA = dt[..., None] * A                     # (B, di, N)
+        h = torch.exp(dtA) * h + (dt * x1)[..., None] * Bm[:, None, :]
+        y = torch.einsum("bdn,bn->bd", h, Cm) + Dskip * x1
+        return h, y
+    return step
+
+
+def mamba_scan_ref(dt, Bm, Cm, x, A, D, *, chunk: int = 64,
+                   initial_state=None, return_state: bool = False):
+    """Selective scan: dt/x (B, S, di); Bm/Cm (B, S, N); A (di, N)
+    (negative); D (di,); initial_state (B, di, N) float32 or None.  The
+    plain version of the CUDA kernel (``csrc/mamba_scan.cu``) and the
+    function its backward differentiates.
+
+      h_t = exp(dt_t * A) * h_{t-1} + (dt_t * x_t) B_t;  y_t = h_t . C_t + D * x_t
+
+    A Python time loop on a float32 state, inputs widened to float32,
+    checkpointed per chunk of ``chunk`` steps
+    (:func:`repro_torch.core.scan.remat_time_scan`).  Returns y (B, S, di)
+    in x's dtype, plus the final state when ``return_state``.
+    """
+    B, S, di = x.shape
+    N = Bm.shape[-1]
+    h0 = (initial_state.float() if initial_state is not None
+          else torch.zeros(B, di, N, dtype=torch.float32, device=x.device))
+    tm = lambda a: a.transpose(0, 1)                          # (S, B, ...)
+    hN, y = remat_time_scan(_mamba_step(A.float(), D.float()), h0,
+                            (tm(dt), tm(Bm), tm(Cm), tm(x)), chunk=chunk)
+    y = y.transpose(0, 1).to(x.dtype)                         # (B, S, di)
+    return (y, hN) if return_state else y
 
 
 # --------------------------------------------------------------------------- #

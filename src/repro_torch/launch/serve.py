@@ -6,9 +6,15 @@
         --prompt-len 256 --gen 32
     python -m repro_torch.launch.serve --arch olmoe-1b-7b \
         --width 0 --depth 0 --vocab 0 --experts 0 --kv-block-size 0
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
+        --width 0 --depth 2 --vocab 0 --experts 0
 
 ``--width/--depth/--vocab/--experts`` shrink the config (0 keeps the
 published value; the defaults are a small CPU-sized model).
+A ``--depth`` below the layer pattern's period takes the pattern of the
+config's ``reduced()`` (jamba's: a Mamba layer with a dense FFN, then an
+attention layer with MoE), so that ``--depth 2`` keeps every layer kind
+of the model at its published width on one card.
 ``--kv-block-size 0`` serves from dense per-slot KV rows.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
 a numpy generator with the same seed.  ``--device cpu`` runs the plain

@@ -46,7 +46,14 @@ from repro_torch.train import TrainConfig, make_train_step
 
 def reduced_arch(arch, width, depth, vocab, experts=0):
     """Shrink ``arch`` (0 keeps a dimension), as the reference's
-    ``repro.launch.train.reduced_arch`` does."""
+    ``repro.launch.train.reduced_arch`` does.  A depth below the pattern's
+    period takes the pattern of the config's ``reduced()`` (jamba's: a
+    Mamba layer with a dense FFN, then attention with MoE), where the
+    reference rounds the depth up to the period: so ``depth=2`` keeps
+    every layer kind of jamba at its published width on one card."""
+    if 0 < depth < arch.period:
+        arch = dataclasses.replace(
+            arch, pattern=configs.reduced(arch.name).pattern)
     kw = {}
     if width:
         kw.update(d_model=width, d_ff=width * 4,

@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense and RWKV6 decoder-only LMs (``lm``,
-``recurrent``) on the shared ``arch`` schema.  MoE, Mamba and
-encoder-decoder models arrive with later slices (see ROADMAP.md)."""
+"""Model zoo of the port: the dense, MoE, RWKV6 and Mamba-hybrid
+decoder-only LMs (``lm``, ``moe``, ``recurrent``) on the shared ``arch``
+schema.  VLM and encoder-decoder models arrive with later slices (see
+ROADMAP.md)."""
 
 from .arch import ArchConfig, LayerSpec

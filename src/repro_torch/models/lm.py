@@ -1,6 +1,7 @@
 """Decoder-only LM assembly: the counterpart of ``repro.models.lm`` for
-the dense (``attn`` + SwiGLU), MoE (``attn`` + top-k experts) and RWKV6
-(``rwkv`` time mix + channel mix) patterns.
+the dense (``attn`` + SwiGLU), MoE (``attn`` + top-k experts), RWKV6
+(``rwkv`` time mix + channel mix) and Mamba-hybrid (``mamba`` or ``attn``
+mixers with dense or MoE FFNs, as Jamba) patterns.
 
 Parameters are a dict tree with every per-layer tensor stacked over
 pattern units (leading dim ``n_units``), exactly the reference's layout;
@@ -22,9 +23,9 @@ Entry points:
 
 ``plan`` (a searched ``ModelPlan`` in the reference) only places
 tensors across devices; on one device it changes no arithmetic, and the
-port accepts it for signature parity.  Mamba mixers and modality
-frontends raise ``NotImplementedError`` naming the slice that brings
-them; so does serving an RWKV6 model.
+port accepts it for signature parity.  Modality frontends raise
+``NotImplementedError`` naming the slice that brings them; so does
+serving an RWKV6 model.
 """
 
 from __future__ import annotations
@@ -39,18 +40,10 @@ from . import moe as M
 from . import recurrent as Rc
 from .arch import ArchConfig
 
-_LATER = {"mamba": "the Mamba slice"}
-
 
 def check_arch(arch: ArchConfig) -> None:
-    """Raise for anything beyond the dense, MoE and RWKV6 decoder-only
-    LMs."""
-    for spec in arch.pattern:
-        for kind in (spec.mixer, spec.ffn):
-            if kind in _LATER:
-                raise NotImplementedError(
-                    f"{arch.name}: {kind} layers arrive with "
-                    f"{_LATER[kind]} (ROADMAP.md)")
+    """Raise for anything beyond the dense, MoE, RWKV6 and Mamba-hybrid
+    decoder-only LMs."""
     if arch.frontend or arch.enc_layers:
         raise NotImplementedError(
             f"{arch.name}: frontends and encoder-decoder models arrive "
@@ -106,7 +99,10 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
             lp["tmix"] = Rc.init_rwkv_tmix(arch, dtype, lead=n, **kw)
             lp["cmix"] = Rc.init_rwkv_cmix(arch, dtype, lead=n, **kw)
         else:
-            lp["attn"] = L.init_attention(arch, dtype, lead=n, **kw)
+            if spec.mixer == "mamba":
+                lp["ssm"] = Rc.init_mamba(arch, dtype, lead=n, **kw)
+            else:
+                lp["attn"] = L.init_attention(arch, dtype, lead=n, **kw)
             if spec.ffn == "moe":
                 lp["moe"] = M.init_moe(arch, dtype, lead=n, **kw)
             else:
@@ -146,11 +142,29 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
             h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch)[0]
             new_cache[f"l{j}"] = {}
             continue
-        a, kvc = L.attention(
-            lp["attn"], hn, arch, positions=positions, causal=causal,
-            kv_cache=(lc or {}).get("kv"), cache_pos=cache_pos,
-            block_tables=block_tables, q_lens=q_lens)
-        h = h + L.attention_out(lp["attn"], a)
+        nc: dict = {}
+        if spec.mixer == "mamba":
+            if cache is None:
+                # the reference's inner remat: during the unit's backward
+                # recompute only one mixer's scan internals are live
+                y = checkpoint(
+                    lambda p_, h_: Rc.mamba_mix(p_, h_, arch,
+                                                chunk=time_chunk)[0],
+                    lp["ssm"], hn, use_reentrant=False,
+                    preserve_rng_state=False)
+            else:
+                y, nc["ssm_state"] = Rc.mamba_mix(
+                    lp["ssm"], hn, arch, state=lc.get("ssm_state"),
+                    chunk=time_chunk, q_lens=q_lens)
+            h = h + y
+        else:
+            a, kvc = L.attention(
+                lp["attn"], hn, arch, positions=positions, causal=causal,
+                kv_cache=(lc or {}).get("kv"), cache_pos=cache_pos,
+                block_tables=block_tables, q_lens=q_lens)
+            h = h + L.attention_out(lp["attn"], a)
+            if kvc is not None:
+                nc["kv"] = kvc
         hn = L.apply_norm(lp["ln2"], h)
         if spec.ffn == "moe":
             if cache is None:
@@ -165,7 +179,7 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
         else:
             y = L.mlp(lp["mlp"], hn)
         h = h + y
-        new_cache[f"l{j}"] = {"kv": kvc} if kvc is not None else {}
+        new_cache[f"l{j}"] = nc
     return h, aux, new_cache
 
 
@@ -300,15 +314,34 @@ def _head(params, h, arch):
 # --------------------------------------------------------------------------- #
 # serving: cache init / prefill / decode
 # --------------------------------------------------------------------------- #
+def _slot_state(arch: ArchConfig, batch: int, dtype, device) -> dict:
+    """A Mamba layer's slot-dense state leaves ((n_units, batch, ...)), as
+    in the reference: the conv window in the cache dtype, the SSM state in
+    float32."""
+    n, di = arch.n_units, arch.d_inner
+    return {"ssm_state": {
+        "conv": torch.zeros((n, batch, arch.ssm_conv - 1, di), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros((n, batch, di, arch.ssm_state),
+                           dtype=torch.float32, device=device)}}
+
+
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
+    """KV rows ``(n_units, batch, max_len, KH, hd)`` for attention layers,
+    slot-dense state for Mamba layers."""
     check_servable(arch)
     device = resolve_device(device)
     shape = (arch.n_units, batch, max_len, arch.n_kv_heads, arch.hd)
-    return {f"l{j}": {"kv": {
-        "k": torch.zeros(shape, dtype=dtype, device=device),
-        "v": torch.zeros(shape, dtype=dtype, device=device)}}
-        for j, _ in enumerate(arch.pattern)}
+    cache = {}
+    for j, spec in enumerate(arch.pattern):
+        if spec.mixer == "mamba":
+            cache[f"l{j}"] = _slot_state(arch, batch, dtype, device)
+        else:
+            cache[f"l{j}"] = {"kv": {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    return cache
 
 
 def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
@@ -318,8 +351,9 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
     block_size, KH, hd)`` shared by all slots through a block table.
     ``kv_quant="int8"`` stores the pool as int8 with per-(slot, head)
     f32 scales ``k_scale``/``v_scale`` ``(n_units, NB, block_size, KH)``;
-    zero scales dequantize never-written slots to exactly 0.0.  ``batch``
-    is kept for signature parity: a dense arch has no slot-dense state."""
+    zero scales dequantize never-written slots to exactly 0.0.  Mamba
+    state is O(1) in sequence length and stays slot-dense ``(n_units,
+    batch, ...)``, exactly as in :func:`init_cache`."""
     if kv_quant not in (None, "none", "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
     check_servable(arch)
@@ -337,7 +371,9 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
                                            device=device)
         return leaves
 
-    return {f"l{j}": {"kv": kv_pool()} for j, _ in enumerate(arch.pattern)}
+    return {f"l{j}": (_slot_state(arch, batch, dtype, device)
+                      if spec.mixer == "mamba" else {"kv": kv_pool()})
+            for j, spec in enumerate(arch.pattern)}
 
 
 def prefill(params, batch: dict, cache: dict, arch: ArchConfig):

@@ -1,21 +1,30 @@
-"""RWKV6 (Finch) time mix and channel mix: the counterparts of
-``repro.models.recurrent``'s RWKV functions.
+"""Recurrent mixers: RWKV6 (Finch) time mix and channel mix, and the
+Mamba-1 selective SSM.  The counterparts of ``repro.models.recurrent``.
 
 Parameters are dicts of tensors in the reference's layouts (``mu (5, d)``,
-``wr (d, d)`` .. ``u (H, hs)``), so the bridge moves them across
-unchanged.  The WKV6 recurrence runs through
-:func:`repro_torch.kernels.ops.wkv6` in the head-major ``(B, H, T, N)``
-layout: the CUDA kernel for the stateless (training) form on the card, the
-plain version otherwise.  The decay ``w = exp(-exp(w_log))`` and the state
-stay float32 whatever the activation dtype (``w`` compounds over
-thousands of steps).
+``wr (d, d)`` .. ``u (H, hs)``; ``in_proj (d, 2 di)`` .. ``out_proj
+(di, d)``), so the bridge moves them across unchanged.
 
-The carried-state form (``state``, ``q_lens``) is the reference's serving
-form; the port computes it with the plain recurrence, and serving an RWKV
-model (cache init, prefill, step) arrives with the RWKV6 serve slice.
+The WKV6 recurrence runs through :func:`repro_torch.kernels.ops.wkv6` in
+the head-major ``(B, H, T, N)`` layout: the CUDA kernel for the stateless
+(training) form on the card, the plain version otherwise.  The decay
+``w = exp(-exp(w_log))`` and the state stay float32 whatever the
+activation dtype (``w`` compounds over thousands of steps).  The
+carried-state form (``state``, ``q_lens``) is the reference's serving
+form; serving an RWKV model (cache init, prefill, step) arrives with the
+RWKV6 serve slice.
+
+The selective scan runs through :func:`repro_torch.kernels.ops.mamba_scan`:
+the CUDA kernel on the card in every form (stateless for training and
+``forward``, with a carried state for serving), the plain version on the
+CPU.  ``mamba_mix`` writes the new state into the cache leaves it was
+given (``copy_``), so the views a mixed step passes for one row take the
+update.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -148,3 +157,100 @@ def rwkv_cmix(p: dict, x, arch, state: dict | None = None, q_lens=None):
     v = k @ p["wv"]
     y = torch.sigmoid(xr @ p["wr"]) * v
     return y, {"shift": _shift_state(x, prev, q_lens)}
+
+
+# --------------------------------------------------------------------------- #
+# Mamba-1 selective SSM
+# --------------------------------------------------------------------------- #
+def init_mamba(arch, dtype, *, generator, device, lead=()):
+    """The reference's layout and init rules: ``A_log`` and ``D`` stay
+    float32 whatever ``dtype``; ``dt_bias`` is softplus^-1(0.01) = -4.6;
+    ``conv_b`` is zeros."""
+    d, di, N = arch.d_model, arch.d_inner, arch.ssm_state
+    rank = max(1, math.ceil(d / 16))
+    k = arch.ssm_conv
+    kw = dict(generator=generator, device=device)
+    A = torch.arange(1, N + 1, dtype=torch.float32, device=device)
+    return {
+        "in_proj": dense_init((*lead, d, 2 * di), dtype, fan_in=d, **kw),
+        "conv_w": dense_init((*lead, k, di), dtype, fan_in=k, **kw),
+        "conv_b": torch.zeros((*lead, di), dtype=dtype, device=device),
+        "x_proj": dense_init((*lead, di, rank + 2 * N), dtype, fan_in=di,
+                             **kw),
+        "dt_proj": dense_init((*lead, rank, di), dtype, fan_in=rank, **kw),
+        "dt_bias": torch.full((*lead, di), -4.6, dtype=dtype, device=device),
+        "A_log": torch.log(A).expand(*lead, di, N).contiguous(),
+        "D": torch.ones((*lead, di), dtype=torch.float32, device=device),
+        "out_proj": dense_init((*lead, di, d), dtype, fan_in=di, **kw),
+    }
+
+
+def _causal_conv1d(x, w, b, state=None):
+    """x: (B, S, di); w: (k, di) depthwise; state: (B, k-1, di) carried.
+    Returns (out, xp) with xp the state-prepended input (B, k-1+S, di); the
+    caller takes its next conv state out of xp.  A sum of k shifted
+    products, as the reference writes it (``F.conv1d`` would run a float32
+    convolution through cuDNN in TF32 on the card)."""
+    k = w.shape[0]
+    if state is None:
+        pad = torch.zeros((x.shape[0], k - 1, x.shape[2]), dtype=x.dtype,
+                          device=x.device)
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    S = x.shape[1]
+    out = sum(xp[:, i:i + S, :] * w[i] for i in range(k)) + b
+    return out, xp
+
+
+def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
+              q_lens=None):
+    """x: (B, S, D) -> (y, new_state).  state: {"conv": (B, k-1, di),
+    "ssm": (B, di, N) float32}, updated in place (``copy_``) and returned;
+    without ``state`` the returned ``new_state["ssm"]`` is None (training
+    discards it, and the stateless scan is the TPU kernel's own form).
+
+    q_lens: (B,) -- a mixed step: only row b's first ``q_lens[b]`` tokens
+    are live.  Padding tokens get dt -> 0 (exp(0 A) = 1, zero input: the
+    state passes through untouched) and the next conv window is gathered
+    at each row's ``q_lens[b]`` (0 keeps the carried window)."""
+    B, S, _ = x.shape
+    di, N = arch.d_inner, arch.ssm_state
+    rank = p["dt_proj"].shape[-2]
+    kw = p["conv_w"].shape[-2]
+
+    xz = x @ p["in_proj"]
+    x1, z = torch.split(xz, di, dim=-1)
+    conv_state = state["conv"] if state is not None else None
+    x1, xp = _causal_conv1d(x1, p["conv_w"], p["conv_b"], conv_state)
+    if q_lens is None:
+        new_conv = xp[:, -(kw - 1):, :]
+    else:
+        gi = (q_lens.long()[:, None]
+              + torch.arange(kw - 1, device=x.device)[None, :])
+        new_conv = torch.gather(xp, 1, gi[..., None].expand(B, kw - 1, di))
+    x1 = F.silu(x1)
+
+    dbl = x1 @ p["x_proj"]
+    dt, Bm, Cm = torch.split(dbl, [rank, N, N], dim=-1)
+    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    if q_lens is not None:
+        valid = torch.arange(S, device=x.device)[None, :] < q_lens[:, None]
+        dt = dt * valid[..., None].to(dt.dtype)
+    A = -torch.exp(p["A_log"])                                # (di, N)
+
+    # the scan's inputs stream in the activation dtype; the state
+    # recurrence runs in float32 inside the kernel or the plain version
+    if state is not None:
+        y, hN = ops.mamba_scan(dt.to(x.dtype), Bm, Cm, x1, A, p["D"],
+                               chunk=chunk, initial_state=state["ssm"],
+                               return_state=True)
+        state["conv"].copy_(new_conv)
+        state["ssm"].copy_(hN)
+        new_state = state
+    else:
+        y = ops.mamba_scan(dt.to(x.dtype), Bm, Cm, x1, A, p["D"],
+                           chunk=chunk)
+        new_state = {"conv": new_conv, "ssm": None}
+    y = y * F.silu(z)
+    return y @ p["out_proj"], new_state

@@ -14,7 +14,10 @@
   ``prefill_chunk_tokens=0`` is stall-the-world admission (a batch-1
   prefill through the flash kernel, then a slot write).
 * Identical whole prompt blocks are shared between requests through the
-  refcounted copy-on-write prefix index (paged and chunked only).
+  refcounted copy-on-write prefix index (paged, chunked and
+  attention-only stacks; requested on a Mamba hybrid it stays off).
+* Recurrent (Mamba) state is slot-dense in both layouts: admission zeroes
+  or overwrites the slot's rows.
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
 
@@ -34,13 +37,9 @@ from repro_torch.models import lm
 from repro_torch.models.arch import ArchConfig
 
 from .config import ServeConfig
-from .fns import make_serve_fns
+from .fns import _is_kv_path, make_serve_fns
 from .paging import BlockAllocator, PoolExhausted, PrefixCache
 from .scheduler import Completion, Request, SlotScheduler
-
-
-def _is_kv_path(path) -> bool:
-    return "kv" in path
 
 
 def write_slot(pool: dict, row: dict, slot, block_ids=None) -> dict:
@@ -88,10 +87,10 @@ def copy_block(pool: dict, src: int, dst: int) -> dict:
 
 def reset_slot_state(cache: dict, slot: int) -> dict:
     """Chunked-admission hygiene, in place: zero slot ``slot``'s
-    non-KV (recurrent) state leaves.  KV leaves are left alone: stale KV
-    beyond a request's frontier is masked by ``kv_len``.  (A dense arch
-    has no such leaves; the call keeps the reference's admission
-    sequence.)"""
+    non-KV (recurrent) state leaves, so a new request's Mamba state starts
+    from zero.  KV leaves are left alone: stale KV beyond a request's
+    frontier is masked by ``kv_len``.  (A dense arch has no such leaves;
+    the call keeps the reference's admission sequence.)"""
     for path, leaf in lm.tree_leaves(cache):
         if not _is_kv_path(path):
             leaf[:, slot] = 0
@@ -154,9 +153,13 @@ class ServeEngine:
             self.cache = lm.init_cache(arch, self.max_batch, self.max_len,
                                        self.dtype, device=self.device)
             self.scheduler = SlotScheduler(self.max_batch, config.policy)
-        # prefix sharing needs blocks to point at and a chunk that can
-        # start at the first uncached token
-        use_prefix = config.prefix_cache and self.paged and self.chunked
+        # prefix sharing needs blocks to point at, a chunk that can start
+        # at the first uncached token, and a stack whose per-token state is
+        # all in the KV blocks: a recurrent (Mamba) layer's state must
+        # ingest every prompt token, so it gets no prefix cache
+        attn_only = all(spec.mixer == "attn" for spec in arch.pattern)
+        use_prefix = (config.prefix_cache and self.paged and self.chunked
+                      and attn_only)
         self.prefix = (PrefixCache(self._alloc, evict=config.prefix_evict)
                        if use_prefix else None)
         self.queue: deque[Request] = deque()

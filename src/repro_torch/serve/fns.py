@@ -1,7 +1,7 @@
 """Serving step builders: the counterpart of ``repro.serve.fns``.
 
-``make_serve_fns`` returns ``(prefill, step)`` over the port's dense and
-MoE LMs.
+``make_serve_fns`` returns ``(prefill, step)`` over the port's dense,
+MoE and Mamba-hybrid LMs.
 There is no jit and no plan: PyTorch runs eagerly on one device, and the
 cache is updated in place where the reference donated it to jit.
 """
@@ -12,6 +12,20 @@ import torch
 
 from repro_torch.models import lm
 from repro_torch.models.arch import ArchConfig
+
+
+def _is_kv_path(path) -> bool:
+    return "kv" in path
+
+
+def _row_views(tree, g: int, paged: bool, path=()):
+    """Row ``g`` of the cache as views ``leaf[:, g:g+1]`` (writes land in
+    the cache itself); a paged pool's KV leaves pass whole, since they are
+    shared by every slot through the block tables."""
+    if isinstance(tree, dict):
+        return {k: _row_views(v, g, paged, path + (k,))
+                for k, v in tree.items()}
+    return tree if paged and _is_kv_path(path) else tree[:, g:g + 1]
 
 
 def make_serve_fns(arch: ArchConfig):
@@ -54,14 +68,14 @@ def make_serve_fns(arch: ArchConfig):
         dec_q = (q_lens == 1).to(torch.int32)
         logits, cache = _model_step(params, tokens[:, :1], cache, pos, dec_q,
                                     block_tables)
-        # 2. (1, T) chunk pass on row g: the pool passes whole with row g's
-        #    table row; dense rows pass as the views leaf[:, g:g+1], so the
-        #    chunk's writes land in the cache itself
+        # 2. (1, T) chunk pass on row g: a paged pool passes whole with row
+        #    g's table row; every other leaf (dense KV rows, Mamba state)
+        #    passes as the view leaf[:, g:g+1], so the chunk's writes land
+        #    in the cache itself
         g = int(torch.argmax(q_lens))
-        if block_tables is None:
-            row, bt = lm.tree_map(lambda a: a[:, g:g + 1], cache), None
-        else:
-            row, bt = cache, block_tables[g:g + 1]
+        paged = block_tables is not None
+        row = _row_views(cache, g, paged)
+        bt = block_tables[g:g + 1] if paged else None
         chunk_logits, _ = _model_step(params, tokens[g:g + 1], row,
                                       pos[g:g + 1], q_lens[g:g + 1], bt)
         # q_lens[g] == T: the chunk's last column is row g's next token

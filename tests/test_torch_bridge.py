@@ -73,3 +73,33 @@ def test_bridge_copies_rather_than_aliases():
     tc = params_from_jax(src, "cpu")
     tc["a"][0] = 1.0
     assert src["a"][0] == 0.0
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_jamba_params_and_state_caches_round_trip(dtype):
+    """The Mamba leaves (A_log and D float32 whatever the dtype) and the
+    slot-dense ``ssm_state`` cache leaves of both layouts cross both ways
+    bit for bit, and the port's own caches have the reference's tree."""
+    from repro_torch.models import lm
+    arch = C.reduced("jamba_1_5_large")
+    src = jax.tree.map(np.asarray,
+                       jlm.init_lm(jax.random.PRNGKey(0), arch, dtype))
+    tp = params_from_jax(src, "cpu")
+    ssm = tp["stack"]["l0"]["ssm"]
+    assert set(ssm) == {"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj",
+                        "dt_bias", "A_log", "D", "out_proj"}
+    assert ssm["A_log"].dtype == ssm["D"].dtype == torch.float32
+    _assert_same(params_to_numpy(tp), src)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    rng = np.random.default_rng(1)
+    for jc, tc in ((jlm.init_cache(arch, 2, 8, dtype),
+                    lm.init_cache(arch, 2, 8, tdt, device="cpu")),
+                   (jlm.init_paged_cache(arch, 5, 4, 2, dtype),
+                    lm.init_paged_cache(arch, 5, 4, 2, tdt, device="cpu"))):
+        jc = jax.tree.map(np.asarray, jc)
+        _assert_same(params_to_numpy(tc), jc)       # zeros, same tree
+        jc = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+            a.dtype), jc)
+        assert jc["l0"]["ssm_state"]["ssm"].dtype == np.float32
+        _assert_same(params_to_numpy(params_from_jax(jc, "cpu")), jc)

@@ -15,7 +15,11 @@ to the largest output.  Gradients of the kernels' autograd Functions
 are the plain versions' own gradients at the same inputs: 1e-5 relative.
 The MoE scatter is a copy (exact); the MoE op's output runs the expert
 FFN through cuBLAS on the card and on the CPU in the plain op, so it is
-held at 2e-5 of its largest value in float32.
+held at 2e-5 of its largest value in float32.  The selective scan's y and
+final state are held at 1e-5 of their largest value in float32 (sums in
+another order, ``expf`` against ``torch.exp``); bfloat16 y at 1e-2 (one
+bf16 rounding of the output), its float32 state at 1e-5; a row whose dt
+is 0 keeps its state bitwise.
 """
 
 import numpy as np
@@ -23,7 +27,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import decode_attention, moe_dispatch, ops, ref
-from repro_torch.kernels import rwkv6_scan
+from repro_torch.kernels import mamba_scan, rwkv6_scan
 
 
 def _t(a):
@@ -317,3 +321,118 @@ def test_cuda_decode_and_moe_refuse_what_they_do_not_take(cuda):
         moe_dispatch.moe_scatter_cuda(x, lin, 8)
     with pytest.raises(ValueError, match="int32"):
         moe_dispatch.moe_scatter_cuda(x.float(), lin.long(), 8)
+
+
+def mamba_case(device, *, B, S, di, N, dtype, seed=0, state=True):
+    """Scan inputs as the mixer makes them: dt = softplus(...) > 0, A =
+    -exp(A_log) with the reference's log(1..N) init plus noise, D near 1,
+    dt/x/B/C in ``dtype``, a random float32 initial state."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=device)
+    dt = torch.nn.functional.softplus(rn(B, S, di) - 2).to(dtype)
+    Bm, Cm, x = rn(B, S, N).to(dtype), rn(B, S, N).to(dtype), \
+        rn(B, S, di).to(dtype)
+    A_log = torch.log(torch.arange(1, N + 1, device=device, dtype=torch.float32)
+                      ).expand(di, N) + 0.1 * rn(di, N)
+    A = -torch.exp(A_log)
+    D = 1 + 0.1 * rn(di)
+    h0 = rn(B, di, N) if state else None
+    return dt, Bm, Cm, x, A, D, h0
+
+
+SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("state", [False, True], ids=["stateless", "state"])
+@pytest.mark.parametrize("B,S,di,N", [(1, 256, 512, 16), (8, 1, 384, 16),
+                                      (2, 70, 200, 8), (3, 33, 96, 4)])
+def test_cuda_mamba_scan_matches_plain(cuda, dt, state, B, S, di, N):
+    """Chunk, decode, an uneven S and di with N 8, and N 4."""
+    dt_, Bm, Cm, x, A, D, h0 = mamba_case(cuda, B=B, S=S, di=di, N=N,
+                                          dtype=dt, state=state)
+    before = mamba_scan.launches["mamba_scan"]
+    got, hN = ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                             return_state=True)
+    if not state:                            # the stateless form too
+        y_only = ops.mamba_scan(dt_, Bm, Cm, x, A, D)
+        torch.testing.assert_close(y_only, got, atol=0, rtol=0)
+    torch.cuda.synchronize()
+    assert mamba_scan.launches["mamba_scan"] == before + 1 + (not state)
+    want, want_h = ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                                      return_state=True)
+    assert got.dtype == dt and hN.dtype == torch.float32
+    tol = SCAN_TOL[dt] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    tol = 1e-5 * float(want_h.abs().max())
+    torch.testing.assert_close(hN, want_h, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_strided_inputs_and_idle_rows(cuda):
+    """B/C as the mixer's split views of one (B, S, r + 2N) tensor, with a
+    carried state; rows whose dt is 0 come out with their initial state
+    bitwise."""
+    dt_, _, _, x, A, D, h0 = mamba_case(cuda, B=4, S=40, di=256, N=16,
+                                        dtype=torch.float32)
+    dbl = torch.randn(4, 40, 8 + 32, device=cuda)
+    _, Bm, Cm = torch.split(dbl, [8, 16, 16], dim=-1)
+    dt_[1] = 0
+    dt_[3, :] = 0
+    want, want_h = ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                                      return_state=True)
+    got, hN = ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                             return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hN[1], h0[1]) and torch.equal(hN[3], h0[3])
+    assert not torch.equal(hN[0], h0[0])
+    tol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got, want, atol=tol, rtol=0)
+    torch.testing.assert_close(hN, want_h, atol=1e-5 * float(
+        want_h.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", [False, True], ids=["stateless", "state"])
+def test_cuda_mamba_scan_gradient_matches_plain(cuda, state):
+    inputs = [t for t in mamba_case(cuda, B=2, S=50, di=64, N=16,
+                                    dtype=torch.float32, state=state)
+              if t is not None]
+    gy = torch.randn(2, 50, 64, device=cuda)
+    gh = torch.randn(2, 64, 16, device=cuda)
+
+    def run(fn):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        h0 = leaves[6] if state else None
+        y, hN = fn(*leaves[:6], chunk=16, initial_state=h0,
+                   return_state=True)
+        (torch.sum(y * gy) + torch.sum(hN * gh)).backward()
+        return [y.detach(), hN.detach()] + [t.grad for t in leaves]
+
+    before = mamba_scan.launches["mamba_scan"]
+    got = run(ops.mamba_scan)
+    assert mamba_scan.launches["mamba_scan"] == before + 1
+    want = run(ref.mamba_scan_ref)
+    for a, b in zip(got, want):
+        tol = 1e-5 * float(b.abs().max())
+        torch.testing.assert_close(a, b, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_mamba_scan_refuses_what_it_does_not_take(cuda):
+    dt_, Bm, Cm, x, A, D, h0 = mamba_case(cuda, B=1, S=8, di=64, N=16,
+                                          dtype=torch.float32)
+    big = torch.zeros(1, 8, 17, device=cuda)
+    with pytest.raises(ValueError, match="state size"):
+        ops.mamba_scan(dt_, big, big, x, torch.zeros(64, 17, device=cuda), D)
+    with pytest.raises(ValueError, match="all the same"):
+        ops.mamba_scan(dt_.bfloat16(), Bm, Cm, x, A, D)
+    with pytest.raises(ValueError, match="A must be"):
+        ops.mamba_scan(dt_, Bm, Cm, x, A.double(), D)
+    with pytest.raises(ValueError, match="last axis"):
+        ops.mamba_scan(dt_, Bm, Cm, x.transpose(0, 2).contiguous()
+                       .transpose(0, 2), A, D)
+    with pytest.raises(ValueError, match="initial_state"):
+        ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0.bfloat16())

@@ -1,8 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module loads
-neither ``jax`` nor any module of the reference package ``repro``; its
-entry points refuse to run without a GPU unless given ``device="cpu"``;
-and ``chip_smoke.py`` fails (and prints no result) where there is no
-card, and where it stands without the rest of the repository."""
+neither ``jax`` nor any module of the reference package ``repro``, and
+``chip_smoke.py`` imports neither; its entry points refuse to run
+without a GPU unless given ``device="cpu"``; and ``chip_smoke.py`` fails
+(and prints no result) where there is no card, and where it stands
+without the rest of the repository."""
 
 import os
 import shutil
@@ -35,11 +36,13 @@ sys.exit(1 if bad or missing else 0)
 # one of these is not among them
 MODULES = [
     "repro_torch.bridge", "repro_torch.checkpoint.manager",
+    "repro_torch.configs.jamba_1_5_large",
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.rwkv6_1b6",
     "repro_torch.core.scan", "repro_torch.data.pipeline",
     "repro_torch.device", "repro_torch.kernels.build",
     "repro_torch.kernels.decode_attention",
-    "repro_torch.kernels.flash_attention", "repro_torch.kernels.moe_dispatch",
+    "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.moe_dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
     "repro_torch.launch.serve", "repro_torch.launch.train",
@@ -61,6 +64,22 @@ def test_port_imports_neither_jax_nor_repro():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.strip().endswith("[] []")
+
+
+def test_chip_smoke_imports_neither_jax_nor_repro():
+    """Every import statement of ``chip_smoke.py``, at any depth: the port
+    and the standard library only."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    assert any(n.startswith("repro_torch") for n in names)
+    bad = sorted(n for n in names if n.split(".")[0] in ("jax", "repro"))
+    assert bad == []
 
 
 def test_entry_points_need_a_gpu_or_an_explicit_cpu():
@@ -101,6 +120,27 @@ def test_serve_launcher_serves_olmoe_on_cpu(extra, capsys):
     first = capsys.readouterr().out.splitlines()[0]
     assert ("kv=dense" in first) == bool(extra)
     assert "kv=paged(bs=4" in first or extra
+
+
+@pytest.mark.parametrize("extra", [["--kv-block-size", "4"],
+                                   ["--kv-block-size", "0"],
+                                   ["--kv-block-size", "0",
+                                    "--prefill-chunk-tokens", "0"]],
+                         ids=["paged", "dense", "dense-stall"])
+def test_serve_launcher_serves_jamba_on_cpu(extra, capsys):
+    """Reduced jamba (Mamba + attention + MoE); on a paged, chunked engine
+    the prefix cache it asks for by default stays off."""
+    from repro_torch.launch import serve
+    out = serve.main(["--device", "cpu", "--arch", "jamba-1.5-large-398b",
+                      "--batch", "2", "--requests", "3", "--prompt-len", "9",
+                      "--gen", "3", "--width", "128", "--depth", "2",
+                      "--vocab", "64", "--experts", "4"] + extra)
+    assert sorted(c.uid for c in out["completions"]) == [0, 1, 2]
+    assert all(len(c.tokens) == 3 for c in out["completions"])
+    printed = capsys.readouterr().out
+    assert "prefix cache" not in printed
+    dense = extra[extra.index("--kv-block-size") + 1] == "0"
+    assert ("kv=dense" in printed.splitlines()[0]) == dense
 
 
 def test_serve_launcher_runs_on_cpu_when_asked():

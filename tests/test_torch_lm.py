@@ -1,9 +1,11 @@
-"""The port's dense LM against ``repro.models.lm`` on the four reduced
-dense configs, with the reference's weights moved across by the bridge:
-``prefill`` logits and cache over a dense row, and ``step`` logits over
-dense, paged and int8 paged caches (a ragged mixed step, then a
-single-token decode on the paged pools).  Float32, tolerance 1e-5 on
-logits; int8 payloads compare within one quantization step.
+"""The port's LM against ``repro.models.lm`` on the four reduced dense
+configs and reduced jamba (Mamba + attention + MoE), with the reference's
+weights moved across by the bridge: ``prefill`` logits and every cache
+leaf over a dense row, and ``step`` logits over dense, paged and int8
+paged caches (a ragged mixed step, then a single-token decode), with the
+KV and Mamba state leaves after it.  Float32, tolerance 1e-5 on logits
+and states (1e-4 with the int8 pool); int8 payloads compare within one
+quantization step.
 """
 
 import dataclasses
@@ -20,7 +22,8 @@ from repro_torch import configs as TC
 from repro_torch.bridge import params_from_jax, params_to_numpy
 from repro_torch.models import lm
 
-ARCHS = ["llama3_2_1b", "qwen2_5_3b", "olmo_1b", "granite_3_2b"]
+ARCHS = ["llama3_2_1b", "qwen2_5_3b", "olmo_1b", "granite_3_2b",
+         "jamba_1_5_large"]
 TOL = 1e-5
 
 
@@ -47,17 +50,16 @@ def test_other_archs_name_their_slice():
     TC.get("olmoe-1b-7b")                    # ported: MoE serving
     with pytest.raises(NotImplementedError, match="multi-GPU plans"):
         TC.get("phi3.5-moe-42b-a6.6b")
-    with pytest.raises(NotImplementedError, match="Mamba slice"):
-        TC.get("jamba-1.5-large-398b")
     rwkv = TC.reduced("rwkv6_1b6")           # trained, not yet served
     with pytest.raises(NotImplementedError, match="RWKV6 serve slice"):
         lm.init_paged_cache(rwkv, 3, 4, 2, device="cpu")
     with pytest.raises(ValueError, match="unknown arch"):
         TC.get("gpt-17")
-    jamba = dataclasses.replace(C.reduced("jamba_1_5_large"))
-    with pytest.raises(NotImplementedError, match="Mamba slice"):
-        lm.init_lm(jamba, generator=torch.Generator().manual_seed(0),
-                   device="cpu")
+    jamba = TC.get("jamba-1.5-large-398b")   # ported: Mamba hybrid serving
+    p = lm.init_lm(TC.reduced("jamba_1_5_large"),
+                   generator=torch.Generator().manual_seed(0), device="cpu")
+    assert "ssm" in p["stack"]["l0"] and "moe" in p["stack"]["l1"]
+    assert jamba.pattern[4].mixer == "attn"
 
 
 @pytest.mark.parametrize("name", ARCHS)
@@ -70,10 +72,11 @@ def test_prefill_logits_and_cache(name):
                            jc, arch)
     got, tc = lm.prefill(tp, {"tokens": torch.from_numpy(tokens)}, tc, arch)
     _close(got, want)
-    jnc = jax.tree.map(np.asarray, jc)
-    tnc = params_to_numpy(tc)
-    for key in ("k", "v"):
-        _close(tnc["l0"]["kv"][key], jnc["l0"]["kv"][key])
+    jnc = dict(lm.tree_leaves(jax.tree.map(np.asarray, jc)))
+    tnc = dict(lm.tree_leaves(params_to_numpy(tc)))
+    assert tnc.keys() == jnc.keys()
+    for path, leaf in tnc.items():
+        _close(leaf, jnc[path])
 
 
 def _caches(arch, kind):
@@ -114,19 +117,24 @@ def test_step_logits_over_caches(name, kind):
     got, tc = lm.decode_step(tp, torch.from_numpy(tok), tc,
                              torch.from_numpy(pos), arch, block_tables=tbt)
     _close(got[:2], want[:2], tol)
-    jnc = jax.tree.map(np.asarray, jc)["l0"]["kv"]
-    tnc = params_to_numpy(tc)["l0"]["kv"]
-    if tables is None:                      # rows 0, 1 up to their depth
-        for key in jnc:
-            _close(tnc[key][:, 0, :7], jnc[key][:, 0, :7])
-            _close(tnc[key][:, 1, :4], jnc[key][:, 1, :4])
-        return
-    for key in jnc:                         # blocks 1..5 hold live tokens
-        a, b = tnc[key][:, 1:], jnc[key][:, 1:]
-        if a.dtype == np.int8:
-            assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
-        else:
-            _close(a, b)
+    jnc = jax.tree.map(np.asarray, jc)
+    tnc = params_to_numpy(tc)
+    for j, layer in jnc.items():
+        if "ssm_state" in layer:            # Mamba state, every row
+            for key, b in layer["ssm_state"].items():
+                _close(tnc[j]["ssm_state"][key], b, tol)
+            continue
+        jkv, tkv = layer["kv"], tnc[j]["kv"]
+        for key in jkv:
+            if tables is None:              # rows 0, 1 up to their depth
+                _close(tkv[key][:, 0, :7], jkv[key][:, 0, :7])
+                _close(tkv[key][:, 1, :4], jkv[key][:, 1, :4])
+                continue
+            a, b = tkv[key][:, 1:], jkv[key][:, 1:]   # blocks 1..5: live
+            if a.dtype == np.int8:
+                assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+            else:
+                _close(a, b)
 
 
 def test_decode_positions_validates():
