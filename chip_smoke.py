@@ -49,7 +49,9 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    Then full-width olmoe-1b-7b (64 experts, top 8) in float32 on the same
    requests: (a) paged, chunked + prefix cache, (b) dense, chunked,
    (c) dense, stall-the-world; each must launch the MoE scatter and
-   gather and its decode kernel.  Then jamba-1.5-large at its published
+   gather and its decode kernel; then (c) once more in bfloat16 (the
+   tensor-core flash prefill and the bf16 dense decode on a served path),
+   held to the same gates.  Then jamba-1.5-large at its published
    width cut to one card (2 layers: Mamba + dense FFN, attention + MoE;
    11.9 B parameters) in float32 in the same three modes, each launching
    the scan, the MoE kernels and its attention kernels, with the prefix
@@ -1009,7 +1011,7 @@ def busy_share(torch, fn):
 
 
 def profile_run(torch, params, arch, requests, mode, modes, wall_s,
-                name):
+                name, dtype=None):
     """``mode`` once more under ``torch.profiler``: the device's busy share
     of the run's wall time and the kernels that take the most device time.
     The profiler adds host time of its own, so the busy share it gives is
@@ -1017,7 +1019,8 @@ def profile_run(torch, params, arch, requests, mode, modes, wall_s,
     of the same device work without it."""
     from repro_torch.serve import ServeConfig
     eng = recording_engine()(params, arch, ServeConfig(
-        max_batch=8, max_len=1024, dtype=torch.float32, **modes[mode]))
+        max_batch=8, max_len=1024, dtype=dtype or torch.float32,
+        **modes[mode]))
     eng.warmup(sorted({len(r.prompt) for r in requests}))
     wall, busy, top = busy_share(torch, lambda: eng.run(requests))
     return {"phase": f"profile-{name}", "wall_s": wall,
@@ -1121,13 +1124,37 @@ def phase_serve_olmoe(torch, device):
     need = {"a": ["paged_decode_attention", *moe],
             "b": ["decode_attention", *moe],
             "c": ["decode_attention", "flash_attention", *moe]}
-    runs, counts = serve_modes(torch, params, arch,
-                               make_requests(arch.vocab), device,
+    reqs = make_requests(arch.vocab)
+    runs, counts = serve_modes(torch, params, arch, reqs, device,
                                name="serve-olmoe", modes=OLMOE_MODES,
                                need=need, profile=tuple(OLMOE_MODES))
     if runs["a"][0]["prefill_tokens_saved"] <= 0:
         fail("serve-olmoe-a: no prefix-cache hit")
-    del params, runs
+    del runs
+
+    # (c) in bfloat16, the dtype a deployment serves in: the tensor-core
+    # flash prefill and the bf16 dense decode on a served path
+    bf = lm.tree_map(lambda t: t.to(torch.bfloat16), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, eng, _ = serve_once(torch, bf, arch, reqs, mode="c",
+                             dtype=torch.bfloat16, device=device,
+                             modes=OLMOE_MODES)
+    del eng
+    counts["serve-olmoe-c-bf16"] = res["launches"]
+    emit({"phase": "serve-olmoe-c-bf16", "arch": arch.name,
+          "config": OLMOE_MODES["c"], **res})
+    for k in need["c"]:
+        if res["launches"][k] <= 0:
+            fail(f"serve-olmoe-c-bf16: kernel {k} was not launched")
+    if not res["finite"]:
+        fail("serve-olmoe-c-bf16: non-finite logits")
+    if res["requests"] != len(reqs):
+        fail(f"serve-olmoe-c-bf16: {res['requests']} of {len(reqs)} served")
+    emit(profile_run(torch, bf, arch, reqs, "c", OLMOE_MODES, res["wall_s"],
+                     "serve-olmoe-c-bf16", dtype=torch.bfloat16))
+    del bf
     return counts
 
 
@@ -1602,20 +1629,28 @@ def main() -> int:
              "src/repro_torch/csrc/mamba_scan.cu",
              "src/repro/kernels/mamba_scan.py:139")]
     kernels = []
+    # the two kernels with a tensor-core / bf16 form also carry their
+    # bfloat16 numbers at the same shape
+    bf16_phase = {"flash_attention": "flash-bf16",
+                  "decode_attention": "decode-olmoe-bf16"}
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
         by_path = {path: c[name] for path, c in counts.items()
                    if c.get(name)}
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": k.get("max_abs_err"),
-                        "ms": k.get("kernel_ms"),
-                        "plain_ms": k.get("plain_ms"),
-                        "bound_ms": k.get("bound_ms"),
-                        "bound_by": k.get("bound_by"),
-                        "library_ms": k.get("library_ms")})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": k.get("max_abs_err"), "ms": k.get("kernel_ms"),
+               "plain_ms": k.get("plain_ms"), "bound_ms": k.get("bound_ms"),
+               "bound_by": k.get("bound_by"),
+               "library_ms": k.get("library_ms")}
+        if name in bf16_phase:
+            kb = kern.get(bf16_phase[name], {})
+            row.update({"ms_bf16": kb.get("kernel_ms"),
+                        "library_ms_bf16": kb.get("library_ms"),
+                        "bound_ms_bf16": kb.get("bound_ms"),
+                        "max_abs_err_bf16": kb.get("max_abs_err")})
+        kernels.append(row)
     record["kernels"] = kernels
     record["seconds"] = seconds
     record["failures"] = failures

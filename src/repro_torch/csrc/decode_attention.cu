@@ -13,17 +13,27 @@
 //
 // What bounds it on the H100: bytes.  Each query row does 4*D flops per
 // cached token against 2*D*sizeof(cache) bytes of K and V, one flop per
-// byte or less; the card needs ~20 (float32 cores) before compute binds.
-// What the design does about it:
-//   * the KV axis is split across CTAs: grid (B*KH, splits), each CTA
-//     walks one range of `chunk` tokens, so 8 slots x 16 KV heads fill the
-//     132 SMs several times over (B*KH alone is 128 CTAs for olmoe, 64 for
-//     llama3.2).  A CTA whose range starts at or past its slot's kv_len
-//     exits at once, so only live bytes are read;
-//   * the G query rows of a KV head share each K/V tile in shared memory;
-//   * each CTA writes float32 partials (m, l, acc) of its range; a second
-//     launch combines the live ranges of each (b, kh) with the usual
-//     rescaling by exp(m_i - max m) and divides by max(l, 1e-30).
+// byte or less.  At serving's sizes (a few MB of live cache) the time is
+// latency: how many of the live bytes are in flight at once.  The design:
+//   * the KV axis is split into small fixed ranges (`chunk`, 64 tokens
+//     unless the grid would pass ~16 CTAs per SM), one CTA per (range, b,
+//     kh): the live ranges alone spread over hundreds of CTAs, and a range
+//     at or past its slot's kv_len exits at once;
+//   * a CTA walks its range in 32-token tiles through a two-stage ring in
+//     shared memory, K and V copied in their own dtype by 16-byte cp.async
+//     (element loads where a stride is not a 16-byte multiple), the next
+//     tile's copy in flight during this tile's products;
+//   * the G query rows of a KV head share every tile; each warp owns 8 of
+//     a tile's tokens, 4 at a time: 8 lanes run across D with vector
+//     loads and three shuffles finish each dot product; the online softmax
+//     gives one lane per token; each thread then owns 4 columns of up to
+//     4 query rows of the output;
+//   * a slot whose row fits one range is finished by its CTA.  Otherwise
+//     each CTA writes float32 partials (m, l, acc) and the last CTA of the
+//     (b, kh), found by an atomic ticket that it resets for the next call,
+//     combines the ranges with the usual rescaling by exp(m_i - max m),
+//     divided by max(l, 1e-30) (one launch: a second combine launch
+//     measured slower at every serving shape).
 // Masked positions never enter the sums (the reference masks them with
 // -1e30); a slot with kv_len 0 gets zeros, as the TPU kernel gives.
 
@@ -33,216 +43,358 @@
 
 #include <cmath>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace hopper;
+
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;    // cached tokens per shared-memory tile
-constexpr int kMaxAcc = 8;   // accumulators per thread: G * D <= 2048
-constexpr float kNegInf = -1e30f;
+constexpr int kTile = 32;     // tokens per stage of the ring
+constexpr int kStages = 2;
+constexpr int kRows = 4;      // query rows per thread in P V: G * D <= 2048
+constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void from_f(float x, float* dst) { *dst = x; }
 __device__ __forceinline__ void from_f(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
 
-// One tile of n tokens (rows t0.. of a (T, D) slab with row stride st)
-// into smem as float32, rows padded to D + 1 floats.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
-                                          long long st, int t0, int n, int D) {
-  const int Dp = D + 1;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int t = i / D, d = i - t * D;
-    dst[t * Dp + d] = t < n ? to_f(src[(t0 + t) * st + d]) : 0.f;
+// four consecutive elements as float32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+// tokens t0 .. t0 + n - 1 of a (T, D) slab with row stride st into a
+// (kTile, D) stage; rows past n are zero (their probability is 0, and 0
+// times an unset value could be NaN)
+template <typename T, int D, bool VEC>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
+                                          long long st, int t0, int n) {
+  constexpr int EPC = 16 / sizeof(T);       // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;              // chunks per row
+  for (int i = threadIdx.x; i < kTile * CPR; i += kThreads) {
+    const int t = i / CPR, c = i % CPR;
+    const bool ok = t < n;
+    const T* s = src + (t0 + t) * st + c * EPC;
+    if (VEC) {
+      cp_async16(dst + t * D + c * EPC, ok ? s : src, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < EPC; ++e) dst[t * D + c * EPC + e] = ok ? s[e] : T(0.f);
+    }
   }
 }
 
+// floats of one range's partials: acc (G x D), then m and l (G each),
+// padded to whole float4s
+__host__ __device__ __forceinline__ int part_stride(int G, int D) {
+  return G * D + (2 * G + 3) / 4 * 4;
+}
+
+// out of one (b, kh) from its `live` partials, 4 columns a thread: one
+// pass of online merging over the ranges, 8 ranges' loads in flight at once
 template <typename T>
+__device__ void combine(const float* __restrict__ part, T* __restrict__ out,
+                        int G, int D, int live) {
+  constexpr int U = 8;
+  const int stride = part_stride(G, D), GD = G * D;
+  for (int j = threadIdx.x * 4; j < GD; j += kThreads * 4) {
+    const int g = j / D;
+    float M = -INFINITY, L = 0.f;
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int i0 = 0; i0 < live; i0 += U) {
+      float mv[U], lv[U];
+      float4 av[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const bool ok = i0 + u < live;
+        const float* p = part + static_cast<size_t>(i0 + u) * stride;
+        mv[u] = ok ? __ldcg(p + GD + g) : -INFINITY;
+        lv[u] = ok ? __ldcg(p + GD + G + g) : 0.f;
+        av[u] = ok ? __ldcg(reinterpret_cast<const float4*>(p + j))
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float mx = M;
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, mv[u]);
+      const float r = exp2f(M - mx);      // every live range has a finite m
+      L *= r;
+      A.x *= r; A.y *= r; A.z *= r; A.w *= r;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const float w = exp2f(mv[u] - mx);
+        L = fmaf(lv[u], w, L);
+        A.x = fmaf(av[u].x, w, A.x);
+        A.y = fmaf(av[u].y, w, A.y);
+        A.z = fmaf(av[u].z, w, A.z);
+        A.w = fmaf(av[u].w, w, A.w);
+      }
+      M = mx;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    from_f(A.x * inv, out + j);
+    from_f(A.y * inv, out + j + 1);
+    from_f(A.z * inv, out + j + 2);
+    from_f(A.w * inv, out + j + 3);
+  }
+}
+
+template <typename T, int D, bool VEC>
 __global__ void __launch_bounds__(kThreads) decode_split_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int32_t* __restrict__ kv_len, float* __restrict__ m_ws,
-    float* __restrict__ l_ws, float* __restrict__ acc_ws, int KH, int G,
-    int D, int Tk, long long ksb, long long ksh, long long kst, long long vsb,
-    long long vsh, long long vst, int chunk, int splits, float scale) {
-  const int bh = blockIdx.x, split = blockIdx.y;
+    const int32_t* __restrict__ kv_len, T* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ tickets, int KH, int G,
+    int Tk, long long ksb, long long ksh, long long kst, long long vsb,
+    long long vsh, long long vst, int chunk, int splits, float scale_log2) {
+  constexpr int NC = D / 32;                // 4-column chunks a lane in Q K^T
+  constexpr int DQ = D / 4;                 // threads per row in P V
+  constexpr int NGS = kThreads / DQ;        // rows in flight in P V
+  const int split = blockIdx.x, bh = blockIdx.y;
   const int b = bh / KH, kh = bh % KH;
   const int len = min(max(kv_len[b], 0), Tk);
-  const int start = split * chunk;
-  if (start >= len) return;                     // a dead range: nothing to do
-  const int end = min(len, start + chunk);
-
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* q_s = smem;                 // G * D
-  float* kv_s = q_s + G * D;         // kTile * (D + 1): K, then V
-  float* p_s = kv_s + kTile * Dp;    // G * kTile: scores, then probabilities
-  float* m_s = p_s + G * kTile;      // G running maxima
-  float* l_s = m_s + G;              // G running sums
-  float* a_s = l_s + G;              // G rescale factors of this tile
-
+  const int live = (len + chunk - 1) / chunk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  T* ob = out + static_cast<size_t>(bh) * G * D;
+  if (split >= live) {                      // a dead range: nothing to do,
+    if (len == 0 && split == 0)             // but an empty row is zeros
+      for (int j = tid; j < G * D; j += kThreads) from_f(0.f, ob + j);
+    return;
+  }
+  const int start = split * chunk, end = min(len, start + chunk);
+  const int n_tiles = (end - start + kTile - 1) / kTile;
+
+  extern __shared__ float4 smem4[];
+  T* kv_s = reinterpret_cast<T*>(smem4);    // kStages x (K, V) x kTile x D
+  float* q_s = reinterpret_cast<float*>(kv_s + kStages * 2 * kTile * D);
+  float* p_s = q_s + G * D;                 // G x kTile
+  float* m_s = p_s + G * kTile;
+  float* l_s = m_s + G;
+  float* a_s = l_s + G;
+  __shared__ int last;
+
   const T* kb = k + b * ksb + kh * ksh;
   const T* vb = v + b * vsb + kh * vsh;
-  const size_t head = static_cast<size_t>(bh) * G * D;
-
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f(q[head + i]);
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {       // prologue: fill the ring
+    const int t0 = start + s * kTile;
+    if (s < n_tiles) {
+      T* st = kv_s + s * 2 * kTile * D;
+      load_tile<T, D, VEC>(st, kb, kst, t0, min(kTile, end - t0));
+      load_tile<T, D, VEC>(st + kTile * D, vb, vst, t0, min(kTile, end - t0));
+    }
+    cp_async_commit();
+  }
+  for (int i = tid; i < G * D; i += kThreads)
+    q_s[i] = to_f(q[static_cast<size_t>(bh) * G * D + i]);
   for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
+    m_s[g] = -INFINITY;
     l_s[g] = 0.f;
   }
-  float acc[kMaxAcc];
+  float acc[kRows][4];
 #pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) acc[r] = 0.f;
+  for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = acc[r][3] = 0.f;
+  const int dq = tid % DQ, gs = tid / DQ;
 
-  for (int t0 = start; t0 < end; t0 += kTile) {
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages, t0 = start + it * kTile;
     const int n = min(kTile, end - t0);
-    __syncthreads();  // q staged / the previous tile's V reads are done
-    load_tile<T>(kv_s, kb, kst, t0, n, D);
+    const T* k_t = kv_s + s * 2 * kTile * D;
+    const T* v_t = k_t + kTile * D;
+    cp_async_wait<kStages - 1>();
     __syncthreads();
 
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, t = i - g * kTile;
-      float s = kNegInf;
-      if (t < n) {
-        const float* qr = q_s + g * D;
-        const float* kr = kv_s + t * Dp;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
+    // scores: warp w takes tokens 8w .. 8w + 7, four at a time, one per
+    // group of 8 lanes; lane s of a group holds the 4-column chunks s + 8c
+    // (c rotated by the group, so the groups read different banks) and
+    // three shuffles finish each dot product
+#pragma unroll
+    for (int pass = 0; pass < kTile / kWarps / 4; ++pass) {
+      const int grp = lane / 8, sub = lane % 8;
+      const int t = warp * (kTile / kWarps) + pass * 4 + grp;
+      float4 kr[NC];
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        kr[c] = load4(k_t + t * D + 4 * (sub + 8 * ((c + grp) % NC)));
+      for (int g = 0; g < G; ++g) {
+        const float* qr = q_s + g * D + 4 * sub;
+        float d = 0.f;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4 x = *reinterpret_cast<const float4*>(qr + 32 * ((c + grp) % NC));
+          d = fmaf(x.x, kr[c].x, d);
+          d = fmaf(x.y, kr[c].y, d);
+          d = fmaf(x.z, kr[c].z, d);
+          d = fmaf(x.w, kr[c].w, d);
+        }
+#pragma unroll
+        for (int o = 4; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+        if (sub == 0) p_s[g * kTile + t] = t < n ? d * scale_log2 : -INFINITY;
       }
-      p_s[i] = s;
     }
     __syncthreads();
 
-    for (int g = warp; g < G; g += kWarps) {    // one warp per query row
-      float* pr = p_s + g * kTile;
-      float mx = kNegInf;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float p = t < n ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    // online softmax in log2 units: one warp per query row, a lane per token
+    for (int g = warp; g < G; g += kWarps) {
+      const float x = p_s[g * kTile + lane];
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, warp_max(x));
+      const float p = exp2f(x - m_new);
+      const float sum = warp_sum(p);
+      p_s[g * kTile + lane] = p;
       if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
+        const float alpha = exp2f(m_old - m_new);
         a_s[g] = alpha;
         l_s[g] = l_s[g] * alpha + sum;
         m_s[g] = m_new;
       }
     }
-    load_tile<T>(kv_s, vb, vst, t0, n, D);
     __syncthreads();
 
+    // P V: this thread's 4 columns of rows gs, gs + NGS, ...
 #pragma unroll
-    for (int r = 0; r < kMaxAcc; ++r) {
-      const int j = tid + r * kThreads;
-      if (j < G * D) {
-        const int g = j / D, d = j - g * D;
+    for (int r = 0; r < kRows; ++r) {
+      const int g = gs + r * NGS;
+      if (g < G) {
+        const float alpha = a_s[g];
+        float a0 = acc[r][0] * alpha, a1 = acc[r][1] * alpha;
+        float a2 = acc[r][2] * alpha, a3 = acc[r][3] * alpha;
         const float* pr = p_s + g * kTile;
-        float a = acc[r] * a_s[g];
-        for (int t = 0; t < n; ++t) a = fmaf(pr[t], kv_s[t * Dp + d], a);
-        acc[r] = a;
+        for (int t = 0; t < n; ++t) {
+          const float p = pr[t];
+          const float4 x = load4(v_t + t * D + dq * 4);
+          a0 = fmaf(p, x.x, a0);
+          a1 = fmaf(p, x.y, a1);
+          a2 = fmaf(p, x.z, a2);
+          a3 = fmaf(p, x.w, a3);
+        }
+        acc[r][0] = a0; acc[r][1] = a1; acc[r][2] = a2; acc[r][3] = a3;
       }
     }
-  }
-  __syncthreads();
+    __syncthreads();                        // stage s and p_s are free
 
-  const size_t part = static_cast<size_t>(bh) * splits + split;
+    if (it + kStages < n_tiles) {
+      const int tn = t0 + kStages * kTile;
+      T* st = kv_s + s * 2 * kTile * D;
+      load_tile<T, D, VEC>(st, kb, kst, tn, min(kTile, end - tn));
+      load_tile<T, D, VEC>(st + kTile * D, vb, vst, tn, min(kTile, end - tn));
+    }
+    cp_async_commit();                      // (empty groups keep the count)
+  }
+
+  if (live == 1) {                          // the whole row: finish here
 #pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) {
-    const int j = tid + r * kThreads;
-    if (j < G * D) acc_ws[part * G * D + j] = acc[r];
+    for (int r = 0; r < kRows; ++r) {
+      const int g = gs + r * NGS;
+      if (g < G) {
+        const float inv = 1.f / fmaxf(l_s[g], 1e-30f);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) from_f(acc[r][e] * inv, ob + g * D + dq * 4 + e);
+      }
+    }
+    return;
+  }
+  const int stride = part_stride(G, D);
+  float* pb = part + static_cast<size_t>(bh) * splits * stride;
+  float* pp = pb + static_cast<size_t>(split) * stride;
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int g = gs + r * NGS;
+    if (g < G)
+      *reinterpret_cast<float4*>(pp + g * D + dq * 4) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
   for (int g = tid; g < G; g += kThreads) {
-    m_ws[part * G + g] = m_s[g];
-    l_ws[part * G + g] = l_s[g];
+    pp[G * D + g] = m_s[g];
+    pp[G * D + G + g] = l_s[g];
   }
+  __threadfence();                          // partials visible, then ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + bh, 1) == live - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  combine<T>(pb, ob, G, D, live);
+  if (tid == 0) tickets[bh] = 0;            // ready for the next call
 }
 
-// out[b, kh, g, d] = sum_i acc_i * exp(m_i - M) / max(sum_i l_i * exp(m_i - M), 1e-30)
-// over the live ranges i of (b, kh); M = max_i m_i.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) decode_combine_kernel(
-    const int32_t* __restrict__ kv_len, const float* __restrict__ m_ws,
-    const float* __restrict__ l_ws, const float* __restrict__ acc_ws,
-    T* __restrict__ out, int KH, int G, int D, int Tk, int chunk, int splits) {
-  const int bh = blockIdx.x, b = bh / KH;
-  const int len = min(max(kv_len[b], 0), Tk);
-  const int live = min(splits, (len + chunk - 1) / chunk);
-  const size_t part0 = static_cast<size_t>(bh) * splits;
-  for (int j = threadIdx.x; j < G * D; j += kThreads) {
-    const int g = j / D;
-    float mx = kNegInf;
-    for (int i = 0; i < live; ++i) mx = fmaxf(mx, m_ws[(part0 + i) * G + g]);
-    float l = 0.f, a = 0.f;
-    for (int i = 0; i < live; ++i) {
-      const float w = expf(m_ws[(part0 + i) * G + g] - mx);
-      l = fmaf(l_ws[(part0 + i) * G + g], w, l);
-      a = fmaf(acc_ws[(part0 + i) * G * D + j], w, a);
-    }
-    from_f(a / fmaxf(l, 1e-30f), out + static_cast<size_t>(bh) * G * D + j);
-  }
-}
-
-template <typename T>
+template <typename T, int D, bool VEC>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* kv_len, void* out, void* m_ws, void* l_ws,
-                   void* acc_ws, int B, int KH, int G, int D, int Tk,
-                   long long ksb, long long ksh, long long kst, long long vsb,
-                   long long vsh, long long vst, int chunk, int splits,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (G * D + kTile * (D + 1) + G * kTile + 3 * G);
-  auto split_kernel = decode_split_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  split_kernel<<<dim3(B * KH, splits), kThreads, smem, stream>>>(
+                   const void* kv_len, void* out, void* part, void* tickets,
+                   int B, int KH, int G, int Tk, long long ksb, long long ksh,
+                   long long kst, long long vsb, long long vsh, long long vst,
+                   int chunk, int splits, cudaStream_t stream) {
+  const int smem = static_cast<int>(kStages * 2 * kTile * D * sizeof(T) +
+                                    sizeof(float) * (G * D + G * kTile + 3 * G));
+  auto kernel = decode_split_kernel<T, D, VEC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(splits, B * KH), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int32_t*>(kv_len),
-      static_cast<float*>(m_ws), static_cast<float*>(l_ws),
-      static_cast<float*>(acc_ws), KH, G, D, Tk, ksb, ksh, kst, vsb, vsh, vst,
-      chunk, splits, 1.0f / sqrtf(static_cast<float>(D)));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  decode_combine_kernel<T><<<B * KH, kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(kv_len), static_cast<const float*>(m_ws),
-      static_cast<const float*>(l_ws), static_cast<const float*>(acc_ws),
-      static_cast<T*>(out), KH, G, D, Tk, chunk, splits);
+      static_cast<T*>(out), static_cast<float*>(part),
+      static_cast<int*>(tickets), KH, G, Tk, ksb, ksh, kst, vsb, vsh, vst,
+      chunk, splits, kLog2e / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dispatch(bool vec, const void* q, const void* k, const void* v,
+                     const void* kv_len, void* out, void* part, void* tickets,
+                     int B, int KH, int G, int Tk, long long ksb,
+                     long long ksh, long long kst, long long vsb,
+                     long long vsh, long long vst, int chunk, int splits,
+                     cudaStream_t s) {
+#define ARGS q, k, v, kv_len, out, part, tickets, B, KH, G, Tk, ksb, ksh, kst, vsb, vsh, vst, chunk, splits, s
+  return vec ? launch<T, D, true>(ARGS) : launch<T, D, false>(ARGS);
+#undef ARGS
 }
 
 }  // namespace
 
 // dtype codes: 0 float32, 1 bfloat16 (q, k, v and out alike).  Strides are
-// in elements.  m_ws / l_ws hold B*KH*splits*G floats, acc_ws
-// B*KH*splits*G*D.  Returns the cudaError_t of the launches (0 on success).
+// in elements.  `part` holds B*KH*splits*(G*D + 4*ceil(2G/4)) floats
+// (16-byte aligned); `tickets` B*KH ints, zero before the first call (the
+// kernel leaves them zero).  Returns the cudaError_t of the launch (0 on
+// success).
 extern "C" int decode_attention(
     const void* q, const void* k, const void* v, const void* kv_len,
-    void* out, void* m_ws, void* l_ws, void* acc_ws, int B, int KH, int G,
-    int D, int Tk, long long ksb, long long ksh, long long kst, long long vsb,
-    long long vsh, long long vst, int chunk, int splits, int dtype,
-    void* stream) {
-  if (G * D > kThreads * kMaxAcc || (D != 64 && D != 128) || chunk < 1 ||
-      splits < 1 || static_cast<long long>(chunk) * splits < Tk)
+    void* out, void* part, void* tickets, int B, int KH, int G, int D, int Tk,
+    long long ksb, long long ksh, long long kst, long long vsb, long long vsh,
+    long long vst, int chunk, int splits, int dtype, void* stream) {
+  if (G < 1 || G * D > 2048 || (D != 64 && D != 128) || chunk < 1 ||
+      chunk % kTile != 0 || splits < 1 ||
+      static_cast<long long>(chunk) * splits < Tk)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS q, k, v, kv_len, out, m_ws, l_ws, acc_ws, B, KH, G, D, Tk, ksb, ksh, kst, vsb, vsh, vst, chunk, splits, s
-  if (dtype == 0) return launch<float>(ARGS);
-  if (dtype == 1) return launch<__nv_bfloat16>(ARGS);
+  const int esize = dtype == 0 ? 4 : 2;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v);
+  const bool vec = (bases % 16) == 0 &&
+                   ((ksb | ksh | kst | vsb | vsh | vst) * esize) % 16 == 0;
+#define ARGS vec, q, k, v, kv_len, out, part, tickets, B, KH, G, Tk, ksb, ksh, kst, vsb, vsh, vst, chunk, splits, s
+  if (dtype == 0 && D == 64) return dispatch<float, 64>(ARGS);
+  if (dtype == 0 && D == 128) return dispatch<float, 128>(ARGS);
+  if (dtype == 1 && D == 64) return dispatch<__nv_bfloat16, 64>(ARGS);
+  if (dtype == 1 && D == 128) return dispatch<__nv_bfloat16, 128>(ARGS);
 #undef ARGS
   return cudaErrorInvalidValue;
 }

@@ -7,8 +7,9 @@ so ``nvcc`` builds it in seconds:
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``build/kernels/`` at the repository root, named by
-a hash of its source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing is built when a module is
+a hash of its source, every shared header ``csrc/*.cuh`` and the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded
+as it is.  Nothing is built when a module is
 imported: the first launch builds, or :func:`build_all` builds every
 source at once, one ``nvcc`` process per source, all in parallel.
 """
@@ -43,8 +44,10 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     for f in ARCH_FLAGS + FLAGS:
         h.update(f.encode())
     return BUILD / f"{name}-{h.hexdigest()[:16]}.so"

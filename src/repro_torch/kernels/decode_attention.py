@@ -6,9 +6,11 @@ The kernel (``csrc/decode_attention.cu``) takes single-token q
 ``(B, KH, G, D)`` and k/v ``(B, KH, T, D)`` in float32 or bfloat16, head
 dim 64 or 128, any T, and any strides with the head dim contiguous (the
 engine's ``(B, T, KH, D)`` cache passes transposed, without a copy).  It
-splits the KV axis across CTAs and combines the partials in a second
-launch; one call of the wrapper is one launch of the pair.  Its plain
-version is :func:`repro_torch.kernels.ref.decode_attention_ref`;
+splits the KV axis into small fixed ranges, one CTA each, so the live
+ranges fill the card whatever the slots' lengths; a slot that spans
+several ranges is combined by the last of its CTAs.  One call of the
+wrapper is one launch.  Its plain version is
+:func:`repro_torch.kernels.ref.decode_attention_ref`;
 :mod:`repro_torch.kernels.ops` picks between the two by the tensor's
 device.
 """
@@ -27,13 +29,20 @@ launches = {"decode_attention": 0}
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SMS = 132          # H100 SXM streaming multiprocessors
-_TILE = 64          # tokens per shared-memory tile of the kernel
+_TILE = 32          # tokens per stage of the kernel's shared-memory ring
+RANGE = 64          # tokens per CTA, unless the grid would outgrow _CAP
+_CAP = 16 * _SMS    # CTAs beyond which ranges grow (~16 per SM)
+
+# per (device, stream): the float32 partials and the int32 tickets, reused
+# by every call on that stream (its launches run in order); the kernel
+# leaves the tickets at zero
+_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib():
     fn = build.load("decode_attention").decode_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 8 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_P]
+        fn.argtypes = [_P] * 7 + [_I] * 5 + [_L] * 6 + [_I] * 3 + [_P]
         fn.restype = _I
     return fn
 
@@ -44,16 +53,29 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def split_plan(B: int, KH: int, T: int) -> tuple[int, int]:
-    """(chunk, splits): tokens per CTA, a whole number of tiles, chosen so
-    the B * KH * splits CTAs cover the SMs about twice; splits * chunk
-    >= T."""
-    want = max(1, -(-2 * _SMS // (B * KH)))
-    chunk = -(-max(1, -(-T // want)) // _TILE) * _TILE
+    """(chunk, splits): tokens per CTA and ranges per row.  Ranges are
+    ``RANGE`` tokens, so a row of any live length spreads over
+    ceil(len / RANGE) CTAs; only where ``B * KH * ceil(T / RANGE)`` would
+    pass ``_CAP`` CTAs do they grow, by whole multiples of ``RANGE``.
+    ``chunk`` is a whole number of tiles and ``splits * chunk >= T``."""
+    n = B * KH * -(-T // RANGE)
+    chunk = RANGE * max(1, -(-n // _CAP))
     return chunk, -(-T // chunk)
 
 
+def _workspace(device, stream: int, n_part: int, n_tickets: int):
+    key = (device.index, stream)
+    part, tickets = _WORKSPACE.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _WORKSPACE[key] = (part, tickets)
+    return part, tickets
+
+
 def decode_attention_cuda(q, k, v, kv_len):
-    """Launch the CUDA kernels on CUDA tensors; raises on anything they do
+    """Launch the CUDA kernel on CUDA tensors; raises on anything it does
     not take.  ``kv_len`` is a (B,) int32 CUDA tensor."""
     B, KH, G, D = q.shape
     T = k.shape[2]
@@ -75,16 +97,14 @@ def decode_attention_cuda(q, k, v, kv_len):
              "kv_len must be (B,) int32")
     chunk, splits = split_plan(B, KH, T)
     out = torch.empty_like(q)
-    m_ws = torch.empty(B * KH * splits * G, dtype=torch.float32,
-                       device=q.device)
-    l_ws = torch.empty_like(m_ws)
-    acc_ws = torch.empty(B * KH * splits * G * D, dtype=torch.float32,
-                         device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    stride = G * D + -(-2 * G // 4) * 4      # per range: acc, m, l
+    part, tickets = _workspace(q.device, stream, B * KH * splits * stride,
+                               B * KH)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
-                 out.data_ptr(), m_ws.data_ptr(), l_ws.data_ptr(),
-                 acc_ws.data_ptr(), B, KH, G, D, T, *k.stride()[:3],
-                 *v.stride()[:3], chunk, splits, _DTYPE[q.dtype], stream)
+                 out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, KH,
+                 G, D, T, *k.stride()[:3], *v.stride()[:3], chunk, splits,
+                 _DTYPE[q.dtype], stream)
     build.check(err, "decode_attention")
     launches["decode_attention"] += 1
     return out

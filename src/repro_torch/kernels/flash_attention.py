@@ -3,9 +3,13 @@ launch count.  Counterpart of ``repro.kernels.flash_attention``.
 
 The kernel (``csrc/flash_attention.cu``) takes q ``(B, H, S, D)`` and
 k/v ``(B, KH, T, D)`` with any S and T >= S, causal or full, head dim 64
-or 128, float32 or bfloat16.  Unlike the TPU kernel it has no alignment
-requirement, so no shape falls back to another path.  Its plain version
-is :func:`repro_torch.kernels.ref.attention_ref`.
+or 128, float32 or bfloat16: bfloat16 on the tensor cores through wgmma
+with TMA-fed tiles, float32 as three TF32 products per product (float32's
+accuracy; TF32 alone stays off).  Unlike the TPU kernel it has no shape
+alignment requirement, so no shape falls back to another path; it needs
+16-byte-aligned base addresses (TMA and cp.async), which every fresh or
+``contiguous()`` copy has.  Its plain version is
+:func:`repro_torch.kernels.ref.attention_ref`.
 
 Like the reference's ``with_reference_vjp``, the kernel is forward-only:
 :class:`FlashAttention` runs it forward and, in the backward pass,
@@ -53,8 +57,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (float32 or bfloat16)")
     _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == D,
              f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} disagree")
-    _require(D in (64, 128) and H % KH == 0 and T >= S,
-             f"head dim {D} (64 or 128), H % KH == 0, T >= S ({T}, {S})")
+    _require(D in (64, 128) and H % KH == 0 and T >= S >= 1,
+             f"head dim {D} (64 or 128), H % KH == 0, T >= S >= 1 ({T}, {S})")
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             "q, k and v must start on 16-byte boundaries (TMA, cp.async)")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

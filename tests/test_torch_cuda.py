@@ -116,6 +116,68 @@ def test_cuda_flash_matches_plain(cuda, dt, causal, S, T, D):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# the bfloat16 kernel takes one-warpgroup CTAs on small grids, two
+# warpgroups (two query heads of one KV group) on large ones with an even
+# group, and one-warpgroup CTAs two to an SM on large ones with an odd
+# group: (B, KH, G) below reach all three at S 700
+FLASH_GROUPS = [(2, 2, 1), (2, 2, 4), (2, 2, 8), (2, 16, 1)]
+FLASH_EDGES = [(True, 1, 1), (True, 63, 63), (True, 65, 65),
+               (True, 127, 200), (False, 129, 129), (True, 700, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,KH,G", FLASH_GROUPS)
+@pytest.mark.parametrize("causal,S,T", FLASH_EDGES)
+def test_cuda_flash_tile_edges(cuda, dt, D, B, KH, G, causal, S, T):
+    """S and T on and off every 64-row / 64-key tile edge; a causal T > S
+    is a cache row whose tail past the prompt is zero."""
+    g = torch.Generator(device=cuda).manual_seed(S + 7 * T + G)
+    q = torch.randn(B, KH * G, S, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, KH, T, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, KH, T, D, generator=g, device=cuda).to(dt)
+    if causal:
+        k[:, :, S:] = 0
+        v[:, :, S:] = 0
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,KH,G,S", [(1, 2, 1, 65), (2, 2, 8, 130),
+                                      (1, 16, 1, 700), (1, 8, 8, 675)])
+def test_cuda_flash_writes_no_row_past_S(cuda, dt, D, B, KH, G, S):
+    """The kernel writes into an output framed by sentinel bands: every
+    row it must write is right, and nothing before or after is touched."""
+    from repro_torch.kernels import build, flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(S)
+    H = KH * G
+    q = torch.randn(B, H, S, D, generator=g, device=cuda).to(dt)
+    k = torch.randn(B, KH, S + 3, D, generator=g, device=cuda).to(dt)
+    v = torch.randn(B, KH, S + 3, D, generator=g, device=cuda).to(dt)
+    n, band = q.numel(), 64 * D
+    buf = torch.full((band + n + band,), 1024.0, dtype=dt, device=cuda)
+    out = buf[band:band + n].view(B, H, S, D)
+    err = fa._lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, H, KH, S, S + 3, D, 1, fa._DTYPE[dt],
+                    torch.cuda.current_stream().cuda_stream)
+    build.check(err, "flash_attention")
+    torch.cuda.synchronize()
+    assert bool((buf[:band] == 1024.0).all())
+    assert bool((buf[band + n:] == 1024.0).all())
+    want = ref.attention_ref(q, k, v, causal=True)
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
 def wkv_case(device, *, B, H, T, N, dtype, seed=0):
     """r/k/v of order 1 in ``dtype``; w = exp(-exp(w_log)) in float32 as the
     time mix makes it (w_log in [-4, 1], decays from 0.98 down to 0.07)."""
@@ -233,6 +295,79 @@ def test_cuda_decode_matches_plain(cuda, dt, B, KH, G, D, T):
                                     k.transpose(1, 2), v.transpose(1, 2),
                                     T).reshape(B, KH, G, D)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _decode_ref(q, k, v, kv_len):
+    """The plain version, with the kernel's (and the TPU kernel's) zeros
+    for a slot with no cached token (the plain softmax over an all-masked
+    row averages V instead)."""
+    B, KH, G, D = q.shape
+    want = ref.decode_attention_ref(q.reshape(B, KH * G, D), k, v,
+                                    kv_len).reshape(B, KH, G, D)
+    return torch.where((kv_len > 0)[:, None, None, None], want,
+                       torch.zeros_like(want))
+
+
+def _decode_case(device, dt, B, KH, G, D, T, lens, pad=0, seed=0):
+    """q and a (B, T, KH, D + pad) cache passed transposed (pad > 0: row
+    strides that are no multiple of 16 bytes, the element-load path)."""
+    g = torch.Generator(device=device).manual_seed(seed + T + G)
+    q = torch.randn(B, KH, G, D, generator=g, device=device).to(dt)
+    kc = torch.randn(B, T, KH, D + pad, generator=g, device=device).to(dt)
+    vc = torch.randn(B, T, KH, D + pad, generator=g, device=device).to(dt)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    return (q, kc[..., :D].transpose(1, 2), vc[..., :D].transpose(1, 2),
+            kv_len)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("KH,G,D,T,lens,pad", [
+    (2, 2, 64, 200, [0, 1, 31, 32, 33, 200], 0),          # zeros, tile edges
+    (2, 8, 128, 300, [63, 64, 65, 127, 128, 129, 0, 191, 300], 0),  # ranges
+    (4, 4, 64, 1024, [5, 17, 40, 63], 0),        # all shorter than a range
+    (4, 2, 64, 1, [1, 0], 0),                                     # T 1
+    (2, 16, 128, 4096, [4096, 2500], 0),                          # T 4096
+    (2, 32, 64, 100, [100, 50, 1], 0),                       # G * D 2048
+    (2, 4, 64, 130, [130, 64, 3], 1),                 # unaligned strides
+    (8, 1, 128, 700, [700, 1, 699], 3)], ids=[
+        "tiles", "ranges", "short", "T1", "T4096", "G32", "strided",
+        "strided-d128"])
+def test_cuda_decode_edges(cuda, dt, KH, G, D, T, lens, pad):
+    q, k, v, kv_len = _decode_case(cuda, dt, len(lens), KH, G, D, T, lens,
+                                   pad)
+    got = ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    for b in range(len(lens)):
+        if lens[b] == 0:
+            assert bool((got[b] == 0).all()), "kv_len 0 must give zeros"
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(got.float(),
+                               _decode_ref(q, k, v, kv_len).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_decode_back_to_back_calls(cuda, dt):
+    """Calls of different shapes in a row on one stream, then the first
+    again, with no synchronization between: a workspace reused too early
+    or a combine ticket left set would corrupt a later result."""
+    shapes = [(8, 16, 1, 128, 1024, [64, 65, 1024, 241, 267, 87, 110, 71]),
+              (3, 8, 8, 128, 4096, [4096, 130, 2049]),
+              (8, 8, 4, 64, 1024, [1024, 0, 700, 64, 1, 129, 513, 300])]
+    cases = [_decode_case(cuda, dt, B, KH, G, D, T, lens, seed=i)
+             for i, (B, KH, G, D, T, lens) in enumerate(shapes)]
+    cases.append(cases[0])
+    outs = [ops.decode_attention(*c) for c in cases]
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[dt]
+    for c, got in zip(cases, outs):
+        torch.testing.assert_close(got.float(), _decode_ref(*c).float(),
+                                   atol=tol, rtol=tol)
+    torch.testing.assert_close(outs[0], outs[-1], atol=0, rtol=0)
 
 
 def moe_kernel_case(device, dt, *, B, S, K, E, C, D, seed=0):

@@ -203,3 +203,50 @@ def test_dense_engine_matches_reference_token_for_token(mode):
     assert eng.peak_blocks_in_use == 0
     assert tuple(eng.cache["l0"]["kv"]["k"].shape[1:3]) == (
         eng.max_batch, eng.max_len)
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA kernel's split plan (pure Python): fixed small ranges, whole tiles
+from repro_torch.kernels import decode_attention as _dk   # noqa: E402
+
+_SIZES = [(8, 16), (8, 8), (1, 1), (2, 4), (64, 32), (256, 16)]
+_LENGTHS = [1, 31, 32, 33, 63, 64, 65, 700, 1024, 4096, 32768]
+
+
+@pytest.mark.parametrize("B,KH", _SIZES)
+@pytest.mark.parametrize("T", _LENGTHS)
+def test_split_plan_covers_every_token_with_whole_tiles(B, KH, T):
+    chunk, splits = _dk.split_plan(B, KH, T)
+    assert chunk > 0 and splits > 0
+    assert chunk % _dk._TILE == 0 and chunk % _dk.RANGE == 0
+    assert (splits - 1) * chunk < T <= splits * chunk
+
+
+@pytest.mark.parametrize("B,KH", _SIZES)
+@pytest.mark.parametrize("T", _LENGTHS)
+def test_split_plan_fills_the_card_where_the_rows_allow(B, KH, T):
+    chunk, splits = _dk.split_plan(B, KH, T)
+    want = 2 * _dk._SMS
+    possible = B * KH * -(-T // _dk.RANGE)
+    assert B * KH * splits >= min(want, possible)
+    if possible <= _dk._CAP:       # small grids keep the smallest range
+        assert chunk == _dk.RANGE
+
+
+def test_split_plan_sized_to_the_live_length():
+    """The serving shapes over a 1024-token row at the chip run's ragged
+    kv_len: the live ranges alone give at least 2 x 132 CTAs."""
+    kv_len = [64, 65, 1024, 241, 267, 87, 110, 71]
+    for KH in (8, 16):
+        chunk, splits = _dk.split_plan(len(kv_len), KH, 1024)
+        live = KH * sum(-(-n // chunk) for n in kv_len)
+        assert live >= 2 * _dk._SMS, (KH, chunk, live)
+
+
+def test_split_plan_never_gives_an_empty_range():
+    rng = np.random.default_rng(0)
+    for _ in range(500):
+        B, KH = int(rng.integers(1, 65)), int(rng.integers(1, 33))
+        T = int(rng.integers(1, 70000))
+        chunk, splits = _dk.split_plan(B, KH, T)
+        assert chunk >= _dk.RANGE and (splits - 1) * chunk < T

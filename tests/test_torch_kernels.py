@@ -153,3 +153,35 @@ def test_quantize_payload_identical_to_reference():
     np.testing.assert_array_equal(
         dequantize_kv(tq, ts).numpy(),
         np.asarray(jquant.dequantize_kv(jq, js)))
+
+
+# --------------------------------------------------------------------------- #
+# kernels/build.py: a library's name hashes its source, every shared header
+# and the flags, so an edited header rebuilds every kernel (no nvcc needed)
+def _csrc(tmp_path, monkeypatch):
+    from repro_torch.kernels import build
+    for name in ("one", "two"):
+        (tmp_path / f"{name}.cu").write_text(f'#include "common.cuh"\n// {name}\n')
+    (tmp_path / "common.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    return build
+
+
+def test_build_target_changes_with_a_shared_header(tmp_path, monkeypatch):
+    build = _csrc(tmp_path, monkeypatch)
+    before = {n: build._target(n) for n in ("one", "two")}
+    (tmp_path / "common.cuh").write_text("// v2\n")
+    after = {n: build._target(n) for n in ("one", "two")}
+    assert all(before[n] != after[n] for n in before)
+    (tmp_path / "extra.cuh").write_text("// a new header\n")
+    assert all(build._target(n) != after[n] for n in after)
+    assert build.sources() == ["one", "two"]      # headers are not sources
+
+
+def test_build_target_ignores_another_source(tmp_path, monkeypatch):
+    build = _csrc(tmp_path, monkeypatch)
+    one, two = build._target("one"), build._target("two")
+    (tmp_path / "two.cu").write_text("// edited\n")
+    assert build._target("one") == one
+    assert build._target("two") != two
+    assert one.parent == build.BUILD and one.name.startswith("one-")
