@@ -10,8 +10,9 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
 1. build: every ``src/repro_torch/csrc/*.cu`` with ``nvcc`` for sm_90a,
    all in parallel; print the card's name and power limit.
 2. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the serve engine's shapes (paged decode f32 / bf16 / int8 at
-   llama3.2's head dim 64 and f32 / bf16 at olmoe's 128, flash prefill
+   card, at the serve engine's shapes (paged decode f32 / bf16 / int8 with
+   f32 and with bf16 q at llama3.2's head dim 64 and f32 / bf16 / int8 at
+   olmoe's 128, each beside its time before the split-KV redesign, flash prefill
    f32 / bf16 at both, dense split-KV decode f32 / bf16 at olmoe's
    (8, 16, 1, 128) and llama3.2's (8, 8, 4, 64) over a 1024-token cache,
    MoE scatter and gather f32 / bf16 at olmoe's decode shape (B 8, S 1,
@@ -23,7 +24,9 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    selective scan f32 / bf16 at the chunk shape (1, 256, 16384, N 16) and
    the decode shape (8, 1, 16384) with a carried state, a stall prefill
    (1, 675) with a state, the stateless forward (1, 512), N 8; rows with
-   dt = 0 keep their state bitwise); and at the
+   dt = 0 keep their state bitwise; flash f32 / bf16 at a long prompt
+   with jamba's heads, q (1, 64, 4096, 128) against 4096 keys, beside
+   SDPA); and at the
    train step's shapes (flash causal q (8, 32, 256, 64), WKV6 (8, 32, 256,
    64) f32 / bf16).  One JSON line per phase: error and tolerance, the
    kernel's, the plain version's and the library call's time, and the
@@ -132,6 +135,14 @@ GRAD_TOL = 1e-5
 # may differ by more than 1e-5 and none by more than 2 * sum(lr) + 1e-5
 TRAIN_REF_TOL = {"metric": 1e-5, "moment": 1e-4, "noise": 4,
                  "param": 1e-5, "param_frac": 1e-3}
+# the paged decode kernel's times before its split-KV redesign (ms, same
+# phases and shapes, L2 flushed, on "NVIDIA H100 80GB HBM3, 700.00 W"),
+# as PERF.md's kernel table records them; the int8-with-bf16-q and
+# head-dim-128 int8 phases were not timed then
+PAGED_BEFORE_MS = {"paged-f32": 0.136, "paged-bf16": 0.141,
+                   "paged-int8": 0.146, "paged-d128-f32": 0.249,
+                   "paged-d128-bf16": 0.254, "paged-jamba-f32": 0.275,
+                   "paged-jamba-bf16": 0.286}
 # the train command's optimizer and step settings (launch/train.py)
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
 TRAIN_CFG = {"q_chunk": 256, "time_chunk": 32, "remat": True}
@@ -247,6 +258,8 @@ def paged_inputs(torch, device, *, B=8, KH=8, G=4, D=64, bs=128,
 
 def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
                 D=64):
+    """The split-KV paged kernel against its plain version at the engine's
+    decode shape; its time beside the slice-1 kernel's (PAGED_BEFORE_MS)."""
     from repro_torch.kernels import ops, ref
     q, kp, vp, tables, kv_len, scales = paged_inputs(
         torch, device, KH=KH, G=G, D=D, pool_dtype=pool_dtype,
@@ -276,6 +289,7 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
            "plain_ms": timer(lambda: ref.paged_decode_attention_ref(
                q, kp, vp, tables, kv_len, **scales), iters=10),
            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "before_ms": PAGED_BEFORE_MS.get(name),
            "bytes": bytes_, "flops": flops}
     emit(res)
     if not err <= TOL[dt]:
@@ -284,10 +298,12 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
 
 
 def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
-                D=64):
+                D=64, plain_iters=5):
     """Stall-the-world prefill's shape: q (1, H, S, D) of an S-token
     prompt against its cache row: llama3.2's paged row (S rounded up to
-    whole 128-blocks), or olmoe's dense max_len row."""
+    whole 128-blocks), or olmoe's dense max_len row; or a long prompt at
+    S = T (timed, with SDPA beside it, to rank flash against the library
+    on a larger problem)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=device).manual_seed(SEED)
@@ -316,7 +332,7 @@ def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
            "kernel_call_ms": timer(lambda: ops.flash_attention(
                q, k, v, causal=True), host=True),
            "plain_ms": timer(lambda: ref.attention_ref(q, k, v, causal=True),
-                             iters=5),
+                             iters=plain_iters),
            "library_ms": timer(lambda: F.scaled_dot_product_attention(
                q, k, v, is_causal=True, enable_gqa=True)),
            "library_max_abs_err": lib_err,
@@ -1466,6 +1482,9 @@ def main() -> int:
         ("paged-int8", lambda: phase_paged(torch, timer, device,
                                            "paged-int8", torch.int8,
                                            torch.float32)),
+        ("paged-int8-bf16", lambda: phase_paged(
+            torch, timer, device, "paged-int8-bf16", torch.int8,
+            torch.bfloat16)),
         ("flash-f32", lambda: phase_flash(torch, timer, device, "flash-f32",
                                           torch.float32)),
         ("flash-bf16", lambda: phase_flash(torch, timer, device,
@@ -1476,6 +1495,9 @@ def main() -> int:
         ("paged-d128-bf16", lambda: phase_paged(
             torch, timer, device, "paged-d128-bf16", torch.bfloat16,
             torch.bfloat16, KH=16, G=1, D=128)),
+        ("paged-d128-int8", lambda: phase_paged(
+            torch, timer, device, "paged-d128-int8", torch.int8,
+            torch.float32, KH=16, G=1, D=128)),
         ("flash-d128-f32", lambda: phase_flash(
             torch, timer, device, "flash-d128-f32", torch.float32, S=675,
             T=1024, H=16, KH=16, D=128)),
@@ -1518,6 +1540,12 @@ def main() -> int:
         ("flash-jamba-bf16", lambda: phase_flash(
             torch, timer, device, "flash-jamba-bf16", torch.bfloat16, S=675,
             T=1024, H=64, KH=8, D=128)),
+        ("flash-long-f32", lambda: phase_flash(
+            torch, timer, device, "flash-long-f32", torch.float32, S=4096,
+            T=4096, H=64, KH=8, D=128, plain_iters=2)),
+        ("flash-long-bf16", lambda: phase_flash(
+            torch, timer, device, "flash-long-bf16", torch.bfloat16, S=4096,
+            T=4096, H=64, KH=8, D=128, plain_iters=2)),
         ("decode-jamba-f32", lambda: phase_decode(
             torch, timer, device, "decode-jamba-f32", torch.float32, B=8,
             KH=8, G=8, D=128)),

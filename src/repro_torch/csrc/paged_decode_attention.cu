@@ -1,5 +1,6 @@
-// Paged flash-decode attention for Hopper (sm_90a), float32 / bfloat16
-// pools and int8 pools with per-(slot, head) float32 scales.
+// Split-KV flash-decode attention over a paged KV pool for Hopper
+// (sm_90a): float32 / bfloat16 pools, and int8 pools with per-token
+// float32 scales, head dim 64 or 128.
 //
 // Replaces the TPU kernels src/repro/kernels/paged_decode_attention.py
 // `_paged_kernel` (fp pools) and `_paged_kernel_quant` (int8 pools).
@@ -7,218 +8,170 @@
 // Computes, for every slot b and KV head kh, the attention of the G query
 // rows of that head group (q (B, KH, G, D)) over the slot's first
 // kv_len[b] cached tokens, which live in pool blocks (NB, bs, KH, D)
-// named by block_tables[b, page].  Output (B, KH, G, D) in q's type.
+// named by block_tables[b, page]: token pos of slot b is pool row
+// (block_tables[b, pos / bs] * bs + pos % bs) * KH + kh.  Output
+// (B, KH, G, D) in q's type; q float32 or bfloat16, fp pools in q's type,
+// or int8 pools with (NB, bs, KH) float32 scales.  Any block size.
 //
-// What bounds it on the H100: bytes.  Each query row does 4*D flops per
-// cached token against 2*D*sizeof(pool) bytes of K and V, about one flop
-// per byte in float32 - far below the ~20 flops/byte at which float32
-// compute, let alone the tensor cores, would be the limit.  So the design
-// reads every live K/V byte once and nothing else:
-//   * one CTA per (b, kh): the G query rows of a KV head share each K/V
-//     tile, which is read from device memory once for all G rows;
-//   * the CTA reads its own block-table row and kv_len (there is no
-//     scalar prefetch on this card) and walks only the pages below
-//     ceil(kv_len / bs); unused table entries (the trash block 0) are
-//     never read;
-//   * int8 pools halve (bf16) or quarter (f32) the bytes and are
-//     dequantized by the slot's scale in shared memory before the dot;
-//   * an online softmax keeps (m, l) per row in shared memory and the
-//     accumulator in registers, all float32.
-// With B*KH CTAs (64 at the engine's 8 slots x 8 KV heads) fewer than the
-// 132 SMs are busy; a split-KV variant with a combine pass, which spreads
-// one slot's pages over several CTAs, is later work (ROADMAP.md).
+// The body, what bounds it and its design are decode_common.cuh's, the
+// same as dense decode's; this file supplies the source of token t, read
+// through the block table:
+//   * a CTA reads the table entries its range touches once, into shared
+//     memory; it never reads an entry at or past ceil(kv_len / bs), so the
+//     trash block 0 that unused entries name is never touched.  A range
+//     may span several pages and a page several ranges;
+//   * K and V rows go by 16-byte cp.async in the pool's dtype (an int8
+//     row is 64 or 128 bytes), an int8 row's two scales by 4-byte
+//     cp.async beside them; the body folds the scales into its products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cmath>
+#include <type_traits>
+
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;    // cached tokens per shared-memory tile
-constexpr int kMaxAcc = 8;   // accumulators per thread: G * D <= 2048
-constexpr float kNegInf = -1e30f;
+using namespace decode_common;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ void from_f(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void from_f(float x, __nv_bfloat16* dst) { *dst = __float2bfloat16(x); }
-
-// Copy one tile of n cached tokens (K or V) into smem as float32, rows
-// padded to D + 1 floats so the per-token dot products hit distinct banks.
-template <typename KT, bool QUANT>
-__device__ __forceinline__ void load_tile(
-    float* dst, const KT* __restrict__ pool, const float* __restrict__ scale,
-    const int32_t* __restrict__ table, int t0, int n, int KH, int kh, int D,
-    int bs) {
-  const int Dp = D + 1;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-    const int t = i / D, d = i - t * D;
-    float x = 0.f;
-    if (t < n) {
-      const int pos = t0 + t;
-      const size_t row =
-          (static_cast<size_t>(table[pos / bs]) * bs + pos % bs) * KH + kh;
-      x = to_f(pool[row * D + d]);
-      if (QUANT) x *= scale[row];
-    }
-    dst[t * Dp + d] = x;
-  }
+// 4 bytes global -> shared, zero-filled when !pred
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
+               : "memory");
 }
 
-template <typename QT, typename KT, bool QUANT>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+template <typename T, int D>
+struct PagedRows {
+  using KT = T;
+  static constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  const T* k_pool;
+  const T* v_pool;
+  const float* k_scale;
+  const float* v_scale;
+  const int32_t* tables;
+  int KH, bs, pages;
+  int kh = 0, p0 = 0;
+  const int* tab = nullptr;           // entries p0 .. of this CTA's row
+
+  // table entries a range of `chunk` tokens can touch
+  static int scratch_entries(int chunk, int bs) { return (chunk - 1) / bs + 2; }
+
+  __device__ int length(int n) const { return min(max(n, 0), pages * bs); }
+  __device__ void begin(int b, int kh_, int start, int end, void* scratch) {
+    kh = kh_;
+    p0 = start / bs;
+    int* t = static_cast<int*>(scratch);
+    const int32_t* row = tables + static_cast<size_t>(b) * pages + p0;
+    for (int i = threadIdx.x; i < (end - 1) / bs - p0 + 1; i += kThreads)
+      t[i] = row[i];
+    tab = t;
+    __syncthreads();
+  }
+  __device__ size_t row_of(int pos) const {     // pool row of token pos
+    return (static_cast<size_t>(tab[pos / bs - p0]) * bs + pos % bs) * KH + kh;
+  }
+  __device__ void load(T* k_dst, T* v_dst, float* ks_dst, float* vs_dst,
+                       int t0, int n) const {
+    constexpr int EPC = 16 / sizeof(T);     // elements per 16-byte chunk
+    constexpr int CPR = D / EPC;            // chunks per row
+    for (int i = threadIdx.x; i < kTile * CPR; i += kThreads) {
+      const int t = i / CPR, c = i % CPR;
+      const bool ok = t < n;
+      const size_t row = ok ? row_of(t0 + t) : 0;
+      cp_async16(k_dst + t * D + c * EPC, k_pool + row * D + c * EPC, ok);
+      cp_async16(v_dst + t * D + c * EPC, v_pool + row * D + c * EPC, ok);
+    }
+    if constexpr (kQuant) {
+      for (int t = threadIdx.x; t < kTile; t += kThreads) {
+        const bool ok = t < n;
+        const size_t row = ok ? row_of(t0 + t) : 0;
+        cp_async4(ks_dst + t, k_scale + row, ok);
+        cp_async4(vs_dst + t, v_scale + row, ok);
+      }
+    }
+  }
+};
+
+template <typename QT, typename KT, int D>
+__global__ void __launch_bounds__(kThreads) paged_split_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k_pool,
     const KT* __restrict__ v_pool, const float* __restrict__ k_scale,
     const float* __restrict__ v_scale, const int32_t* __restrict__ tables,
-    const int32_t* __restrict__ kv_len, QT* __restrict__ out, int KH, int G,
-    int D, int bs, int pages, float scale) {
-  extern __shared__ float smem[];
-  const int Dp = D + 1;
-  float* q_s = smem;                 // G * D
-  float* kv_s = q_s + G * D;         // kTile * (D + 1): K, then V
-  float* p_s = kv_s + kTile * Dp;    // G * kTile: scores, then probabilities
-  float* m_s = p_s + G * kTile;      // G running maxima
-  float* l_s = m_s + G;              // G running sums
-  float* a_s = l_s + G;              // G rescale factors of this tile
-
-  const int b = blockIdx.x / KH, kh = blockIdx.x % KH;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int32_t* table = tables + static_cast<size_t>(b) * pages;
-  const int len = min(kv_len[b], pages * bs);
-  const size_t head = (static_cast<size_t>(b) * KH + kh) * G * D;
-
-  for (int i = tid; i < G * D; i += kThreads) q_s[i] = to_f(q[head + i]);
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) acc[r] = 0.f;
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int n = min(kTile, len - t0);
-    __syncthreads();  // the previous tile's V reads are done
-    load_tile<KT, QUANT>(kv_s, k_pool, k_scale, table, t0, n, KH, kh, D, bs);
-    __syncthreads();
-
-    // scores s[g][t] = q[g] . k[t] * scale
-    for (int i = tid; i < G * kTile; i += kThreads) {
-      const int g = i / kTile, t = i - g * kTile;
-      float s = kNegInf;
-      if (t < n) {
-        const float* qr = q_s + g * D;
-        const float* kr = kv_s + t * Dp;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * kTile;
-      float mx = kNegInf;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, pr[t]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < kTile; t += 32) {
-        const float p = t < n ? expf(pr[t] - m_new) : 0.f;
-        pr[t] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    load_tile<KT, QUANT>(kv_s, v_pool, v_scale, table, t0, n, KH, kh, D, bs);
-    __syncthreads();
-
-    // acc[g][d] = acc * alpha[g] + sum_t p[g][t] * v[t][d]
-#pragma unroll
-    for (int r = 0; r < kMaxAcc; ++r) {
-      const int j = tid + r * kThreads;
-      if (j < G * D) {
-        const int g = j / D, d = j - g * D;
-        const float* pr = p_s + g * kTile;
-        float a = acc[r] * a_s[g];
-        for (int t = 0; t < n; ++t) a = fmaf(pr[t], kv_s[t * Dp + d], a);
-        acc[r] = a;
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) {
-    const int j = tid + r * kThreads;
-    if (j < G * D) {
-      const int g = j / D;
-      from_f(acc[r] / fmaxf(l_s[g], 1e-30f), out + head + j);
-    }
-  }
+    const int32_t* __restrict__ kv_len, QT* __restrict__ out,
+    float* __restrict__ part, int* __restrict__ tickets, int KH, int G,
+    int bs, int pages, int chunk, int splits, float scale_log2) {
+  PagedRows<KT, D> src{k_pool, v_pool, k_scale, v_scale, tables, KH, bs,
+                       pages};
+  split_decode<QT, D>(src, q, kv_len, out, part, tickets, KH, G, chunk,
+                      splits, scale_log2);
 }
 
-template <typename QT, typename KT, bool QUANT>
+template <typename QT, typename KT, int D>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
                    const void* k_scale, const void* v_scale,
-                   const void* tables, const void* kv_len, void* out, int B,
-                   int KH, int G, int D, int bs, int pages,
-                   cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (G * D + kTile * (D + 1) + G * kTile + 3 * G);
-  auto kernel = paged_decode_kernel<QT, KT, QUANT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<B * KH, kThreads, smem, stream>>>(
+                   const void* tables, const void* kv_len, void* out,
+                   void* part, void* tickets, int B, int KH, int G, int bs,
+                   int pages, int chunk, int splits, cudaStream_t stream) {
+  using Src = PagedRows<KT, D>;
+  const int smem = body_smem(sizeof(KT), D, G, Src::kQuant) +
+                   static_cast<int>(sizeof(int)) *
+                       Src::scratch_entries(chunk, bs);
+  auto kernel = paged_split_kernel<QT, KT, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(splits, B * KH), kThreads, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k_pool),
       static_cast<const KT*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(kv_len), static_cast<QT*>(out), KH, G, D,
-      bs, pages, 1.0f / sqrtf(static_cast<float>(D)));
+      static_cast<const int32_t*>(kv_len), static_cast<QT*>(out),
+      static_cast<float*>(part), static_cast<int*>(tickets), KH, G, bs,
+      pages, chunk, splits, kLog2e / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
+}
+
+template <typename QT, typename KT>
+cudaError_t dispatch(int D, const void* q, const void* k_pool,
+                     const void* v_pool, const void* k_scale,
+                     const void* v_scale, const void* tables,
+                     const void* kv_len, void* out, void* part,
+                     void* tickets, int B, int KH, int G, int bs, int pages,
+                     int chunk, int splits, cudaStream_t s) {
+#define ARGS q, k_pool, v_pool, k_scale, v_scale, tables, kv_len, out, part, tickets, B, KH, G, bs, pages, chunk, splits, s
+  return D == 64 ? launch<QT, KT, 64>(ARGS) : launch<QT, KT, 128>(ARGS);
+#undef ARGS
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only; needs scales).
+// dtype codes: 0 float32, 1 bfloat16 (q, out, fp pools), 2 int8 (pools
+// only; needs the scales).  Pools 16-byte aligned.  `part` holds
+// B*KH*splits*(G*D + 4*ceil(2G/4)) floats (16-byte aligned); `tickets`
+// B*KH ints, zero before the first call (the kernel leaves them zero).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
-    const void* kv_len, void* out, int B, int KH, int G, int D, int bs,
-    int pages, int q_dtype, int kv_dtype, void* stream) {
-  if (G * D > kThreads * kMaxAcc || D > 256) return cudaErrorInvalidValue;
+    const void* kv_len, void* out, void* part, void* tickets, int B, int KH,
+    int G, int D, int bs, int pages, int chunk, int splits, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (G < 1 || G * D > 2048 || (D != 64 && D != 128) || bs < 1 ||
+      pages < 1 || chunk < 1 || chunk % kTile != 0 || splits < 1 ||
+      static_cast<long long>(chunk) * splits < static_cast<long long>(pages) * bs)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ARGS q, k_pool, v_pool, k_scale, v_scale, tables, kv_len, out, B, KH, G, D, bs, pages, s
-  if (q_dtype == 0 && kv_dtype == 0) return launch<float, float, false>(ARGS);
+#define ARGS D, q, k_pool, v_pool, k_scale, v_scale, tables, kv_len, out, part, tickets, B, KH, G, bs, pages, chunk, splits, s
+  if (q_dtype == 0 && kv_dtype == 0) return dispatch<float, float>(ARGS);
   if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16, false>(ARGS);
-  if (q_dtype == 0 && kv_dtype == 2) return launch<float, int8_t, true>(ARGS);
-  if (q_dtype == 1 && kv_dtype == 2)
-    return launch<__nv_bfloat16, int8_t, true>(ARGS);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(ARGS);
+  if (q_dtype == 0 && kv_dtype == 2) return dispatch<float, int8_t>(ARGS);
+  if (q_dtype == 1 && kv_dtype == 2) return dispatch<__nv_bfloat16, int8_t>(ARGS);
 #undef ARGS
   return cudaErrorInvalidValue;
 }

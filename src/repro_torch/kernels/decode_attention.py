@@ -34,8 +34,8 @@ RANGE = 64          # tokens per CTA, unless the grid would outgrow _CAP
 _CAP = 16 * _SMS    # CTAs beyond which ranges grow (~16 per SM)
 
 # per (device, stream): the float32 partials and the int32 tickets, reused
-# by every call on that stream (its launches run in order); the kernel
-# leaves the tickets at zero
+# by every call on that stream of this kernel and of the paged one (a
+# stream's launches run in order); both kernels leave the tickets at zero
 _WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -63,7 +63,14 @@ def split_plan(B: int, KH: int, T: int) -> tuple[int, int]:
     return chunk, -(-T // chunk)
 
 
-def _workspace(device, stream: int, n_part: int, n_tickets: int):
+def supports(q_shape, kv_shape) -> bool:
+    """The shapes the kernel takes: q (B, KH, G, D), k/v (B, KH, T, D) with
+    head dim 64 or 128, G * D <= 2048 and T >= 1."""
+    _, _, G, D = q_shape
+    return D in (64, 128) and G * D <= 2048 and kv_shape[2] >= 1
+
+
+def workspace(device, stream: int, n_part: int, n_tickets: int):
     key = (device.index, stream)
     part, tickets = _WORKSPACE.get(key, (None, None))
     if part is None or part.numel() < n_part:
@@ -91,7 +98,7 @@ def decode_attention_cuda(q, k, v, kv_len):
     _require(q.dtype in _DTYPE and k.dtype == q.dtype and v.dtype == q.dtype,
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (float32 or bfloat16, "
              f"all the same)")
-    _require(D in (64, 128) and G * D <= 2048 and T > 0,
+    _require(supports(q.shape, k.shape),
              f"head dim {D} (64 or 128), group {G} (G*D <= 2048), T {T} > 0")
     _require(tuple(kv_len.shape) == (B,) and kv_len.dtype == torch.int32,
              "kv_len must be (B,) int32")
@@ -99,8 +106,8 @@ def decode_attention_cuda(q, k, v, kv_len):
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     stride = G * D + -(-2 * G // 4) * 4      # per range: acc, m, l
-    part, tickets = _workspace(q.device, stream, B * KH * splits * stride,
-                               B * KH)
+    part, tickets = workspace(q.device, stream, B * KH * splits * stride,
+                              B * KH)
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(),
                  out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, KH,
                  G, D, T, *k.stride()[:3], *v.stride()[:3], chunk, splits,

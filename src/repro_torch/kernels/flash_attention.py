@@ -44,6 +44,14 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"flash_attention: {msg}")
 
 
+def supports(q_shape, kv_shape) -> bool:
+    """The shapes the kernel takes: q (B, H, S, D), k/v (B, KH, T, D) with
+    head dim 64 or 128, whole head groups and T >= S >= 1."""
+    _, H, S, D = q_shape
+    KH, T = kv_shape[1], kv_shape[2]
+    return D in (64, 128) and KH > 0 and H % KH == 0 and T >= S >= 1
+
+
 def flash_attention_cuda(q, k, v, *, causal: bool = True):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
     not take."""
@@ -57,7 +65,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
              f"dtypes {q.dtype}/{k.dtype}/{v.dtype} (float32 or bfloat16)")
     _require(k.shape == v.shape and k.shape[0] == B and k.shape[3] == D,
              f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} disagree")
-    _require(D in (64, 128) and H % KH == 0 and T >= S >= 1,
+    _require(supports(q.shape, k.shape),
              f"head dim {D} (64 or 128), H % KH == 0, T >= S >= 1 ({T}, {S})")
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
              "q, k and v must start on 16-byte boundaries (TMA, cp.async)")

@@ -53,6 +53,13 @@ def _state(t, name, shape, device):
              f"{t.dtype} {tuple(t.shape)})")
 
 
+def supports(x_shape, state_size: int) -> bool:
+    """The shapes the kernel takes: x (B, S, di) non-empty, B <= 65535 (the
+    grid), state size 1 .. MAX_N."""
+    B, S, di = x_shape
+    return 0 < state_size <= MAX_N and min(B, S, di) > 0 and B <= 65535
+
+
 def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
                     return_state: bool = False):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
@@ -79,7 +86,7 @@ def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
              f"A must be a contiguous float32 ({di}, {N}) and D a ({di},) "
              f"tensor (got {A.dtype} {tuple(A.shape)}, {D.dtype} "
              f"{tuple(D.shape)})")
-    _require(0 < N <= MAX_N and B > 0 and S > 0 and di > 0 and B <= 65535,
+    _require(supports(x.shape, N),
              f"state size {N} (1..{MAX_N}) and a non-empty (B, S, di) = "
              f"({B}, {S}, {di}), B <= 65535")
     if initial_state is not None:

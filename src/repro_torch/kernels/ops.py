@@ -3,7 +3,11 @@
 
 The implementation is chosen by the tensor's device alone: a CUDA tensor
 goes to the hand-written kernel (or the call raises), a CPU tensor goes
-to the plain PyTorch version.  Nothing falls back from one to the other.
+to the plain PyTorch version.  Nothing falls back from one to the other:
+a shape the kernel does not take raises on the card, as a wrong dtype,
+device or layout does.  ``supports_<op>`` says, as a pure function of
+shapes, what each kernel takes, so that a caller can refuse a model
+before it is built (:func:`repro_torch.launch.train.require_kernel_shapes`).
 Where autograd records a gradient, a CUDA call goes through the kernel's
 ``autograd.Function`` (forward the kernel, backward the gradient of the
 plain version), so no caller gets an output detached from its inputs.
@@ -42,6 +46,15 @@ def reset_launch_counts() -> None:
     for c in _COUNTERS:
         for k in c:
             c[k] = 0
+
+
+# what each CUDA wrapper takes: pure functions of shapes, one per op whose
+# kernel has shape limits (the MoE kernels take any shape)
+supports_flash_attention = _flash.supports
+supports_decode_attention = _decode.supports
+supports_paged_decode_attention = _paged.supports
+supports_wkv6 = _wkv6.supports
+supports_mamba_scan = _mamba.supports
 
 
 def _route(t: torch.Tensor, op: str) -> bool:

@@ -43,6 +43,13 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(f"wkv6: {msg}")
 
 
+def supports(r_shape) -> bool:
+    """The shapes the kernel takes: r/k/v/w (B, H, T, N) with head size 32
+    or 64, non-empty."""
+    B, H, T, N = r_shape
+    return N in (32, 64) and min(B, H, T) > 0
+
+
 def wkv6_cuda(r, k, v, w, u):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
     not take.  Returns out (B, H, T, N) in r's dtype."""
@@ -61,7 +68,7 @@ def wkv6_cuda(r, k, v, w, u):
              and w.shape == r.shape and tuple(u.shape) == (H, N),
              f"shapes r {tuple(r.shape)} / k {tuple(k.shape)} / v "
              f"{tuple(v.shape)} / w {tuple(w.shape)} / u {tuple(u.shape)}")
-    _require(N in (32, 64) and B > 0 and H > 0 and T > 0,
+    _require(supports(r.shape),
              f"head size {N} (32 or 64) and a non-empty (B, H, T) "
              f"= ({B}, {H}, {T})")
     out = torch.empty_like(r)

@@ -10,7 +10,10 @@
         --width 0 --depth 2 --vocab 0 --experts 0
 
 ``--width/--depth/--vocab/--experts`` shrink the config (0 keeps the
-published value; the defaults are a small CPU-sized model).
+published value).  The defaults keep the published width, at which the
+heads come out at a size the kernels take, in 4 layers over a 512-token
+vocabulary; a width that leaves the heads at another size is refused on
+the card (a CPU run takes any, e.g. ``--device cpu --width 128``).
 A ``--depth`` below the layer pattern's period takes the pattern of the
 config's ``reduced()`` (jamba's: a Mamba layer with a dense FFN, then an
 attention layer with MoE), so that ``--depth 2`` keeps every layer kind
@@ -31,7 +34,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import reduced_arch
+from repro_torch.launch.train import reduced_arch, require_kernel_shapes
 from repro_torch.models import lm
 from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
 
@@ -72,7 +75,7 @@ def parser() -> argparse.ArgumentParser:
                     choices=list(PrefixCache.EVICTION))
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="int8 stores pool blocks with per-row f32 scales")
-    ap.add_argument("--width", type=int, default=256)
+    ap.add_argument("--width", type=int, default=0)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=512)
     ap.add_argument("--experts", type=int, default=4,
@@ -91,6 +94,7 @@ def main(argv=None) -> dict:
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
+    require_kernel_shapes(arch, device)
     n_requests = args.requests or 2 * args.batch
     max_len = args.prompt_len + args.gen
     chunk = args.prefill_chunk_tokens

@@ -7,10 +7,13 @@ complete checkpoint and continues the data stream deterministically from
 the restored step).
 
     python -m repro_torch.launch.train --arch llama3.2-1b \
-        --steps 200 --batch 8 --seq 256 --width 256 --depth 8
+        --steps 200 --batch 8 --seq 256 --depth 8
 
 Reduced dims (``--width/--depth/--vocab``) scale the assigned arch down;
-omit them for the published config.  The flags and defaults are the
+omit them for the published config.  On the card the width must leave
+the heads at a size the kernels take (head dim 64 or 128: the published
+width, ``--width 0``); a width that does not is refused before anything
+is built.  The flags and defaults are the
 reference's, plus ``--device`` (``cpu`` runs the plain PyTorch versions
 on the CPU; without it the command needs a GPU).  The default checkpoint
 directory is ``repro_ckpt`` under the temporary directory (``TMPDIR``).
@@ -38,6 +41,8 @@ from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
 from repro_torch.models import lm
 from repro_torch.models.arch import ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -71,6 +76,48 @@ def reduced_arch(arch, width, depth, vocab, experts=0):
     if experts and arch.n_experts:
         kw.update(n_experts=experts, top_k=min(arch.top_k, experts))
     return dataclasses.replace(arch, **kw) if kw else arch
+
+
+def kernel_shape_faults(arch) -> list[str]:
+    """What of ``arch`` the card's kernels do not take (``ops.supports_*``
+    at one token of its attention, WKV6 and scan layers); empty when every
+    such op of its stack can launch its kernel."""
+    kinds = {l.mixer for l in arch.pattern}
+    faults = []
+    if "attn" in kinds:
+        H, KH, hd = arch.n_heads, arch.n_kv_heads, arch.hd
+        q, kv = (1, H, 1, hd), (1, KH, 1, hd)
+        dq = (1, KH, H // KH, hd)
+        if not (ops.supports_flash_attention(q, kv)
+                and ops.supports_decode_attention(dq, kv)
+                and ops.supports_paged_decode_attention(
+                    dq, (1, 1, KH, hd), (1, 1))):
+            faults.append(f"attention of head dim {hd}, {H} heads over "
+                          f"{KH} KV heads (the kernels take head dims 64 "
+                          f"and 128, whole head groups of at most "
+                          f"2048 / head dim)")
+    if "rwkv" in kinds and not ops.supports_wkv6(
+            (1, arch.n_rwkv_heads, 1, arch.rwkv_head_size)):
+        faults.append(f"WKV6 head size {arch.rwkv_head_size} (the kernel "
+                      f"takes 32 and 64)")
+    if "mamba" in kinds and not ops.supports_mamba_scan(
+            (1, 1, arch.d_inner), arch.ssm_state):
+        faults.append(f"scan state size {arch.ssm_state} (the kernel takes "
+                      f"1 to {MAX_SCAN_N})")
+    return faults
+
+
+def require_kernel_shapes(arch, device: torch.device) -> None:
+    """On the card every attention, WKV6 and scan op launches its kernel,
+    which raises on a shape it does not take: refuse such an ``arch``
+    before building it, naming the width that works."""
+    faults = kernel_shape_faults(arch) if device.type == "cuda" else []
+    if faults:
+        raise ValueError(
+            f"{arch.name} at d_model {arch.d_model}: the CUDA kernels do "
+            f"not take {'; '.join(faults)}. Keep the published width "
+            f"(--width 0) or one at which the heads come out so, or run "
+            f"the plain versions with --device cpu")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -139,6 +186,7 @@ def main(argv=None) -> list[dict]:
 
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
+    require_kernel_shapes(arch, device)
     shape = ShapeSpec("custom", args.seq, args.batch, "train")
     name = {"search": "searched", "none": "uniform"}.get(
         args.strategy, args.strategy)

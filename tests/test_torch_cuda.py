@@ -24,10 +24,10 @@ is 0 keeps its state bitwise.
 
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import decode_attention, moe_dispatch, ops, ref
-from repro_torch.kernels import mamba_scan, rwkv6_scan
+from repro_torch.kernels import mamba_scan, paged_decode_attention, rwkv6_scan
 
 
 def _t(a):
@@ -96,6 +96,126 @@ def test_cuda_paged_decode_matches_plain(cuda, kind, G, D):
     torch.cuda.synchronize()
     tol = CUDA_TOL[dt]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+PAGED_KINDS = ["float32", "bfloat16", "int8-f32", "int8-bf16"]
+
+
+def _paged_dtypes(kind):
+    """(q dtype, pool dtype) of a kind of PAGED_KINDS."""
+    dt = torch.bfloat16 if kind.endswith("bf16") or kind == "bfloat16" \
+        else torch.float32
+    return dt, (torch.int8 if kind.startswith("int8") else dt)
+
+
+def _paged_on_card(device, kind, *, KH, G, D, bs, lens, pages, seed=0,
+                   trash=0.0):
+    """q, pools, scales, tables and kv_len on the card for rows of the given
+    lengths; the trash block 0 (which every unused table entry names) is
+    filled with ``trash`` (its scales too, for int8)."""
+    dt, pool_dt = _paged_dtypes(kind)
+    g = torch.Generator(device=device).manual_seed(seed + bs + G + D)
+    B = len(lens)
+    NB = B * pages + 1
+    q = torch.randn(B, KH, G, D, generator=g, device=device).to(dt)
+    if pool_dt == torch.int8:
+        kp, vp = (torch.randint(-127, 128, (NB, bs, KH, D), generator=g,
+                                device=device, dtype=torch.int8)
+                  for _ in range(2))
+        ks, vs = (torch.rand(NB, bs, KH, generator=g, device=device) * 0.05
+                  for _ in range(2))
+        ks[0], vs[0] = trash, trash
+        kw = {"k_scale": ks, "v_scale": vs}
+    else:
+        kp, vp = (torch.randn(NB, bs, KH, D, generator=g, device=device)
+                  .to(dt) for _ in range(2))
+        kp[0], vp[0] = trash, trash
+        kw = {}
+    ids = torch.randperm(NB - 1, generator=g, device=device).to(torch.int32) + 1
+    tables = torch.zeros(B, pages, dtype=torch.int32, device=device)
+    for b, n in enumerate(lens):
+        live = -(-n // bs)
+        tables[b, :live] = ids[b * pages:b * pages + live]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    return q, kp, vp, tables, kv_len, kw
+
+
+def _paged_ref(q, kp, vp, tables, kv_len, kw):
+    """The plain version over the pools with the trash block zeroed (the
+    plain gather reads it, and 0 x NaN is NaN), with the kernel's zeros
+    for a row with no cached token."""
+    kp, vp = kp.clone(), vp.clone()
+    kp[0], vp[0] = 0, 0
+    if kw:
+        kw = {k: v.clone() for k, v in kw.items()}
+        kw["k_scale"][0], kw["v_scale"][0] = 0, 0
+    want = ref.paged_decode_attention_ref(q, kp, vp, tables, kv_len, **kw)
+    return torch.where((kv_len > 0)[:, None, None, None], want,
+                       torch.zeros_like(want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PAGED_KINDS)
+@pytest.mark.parametrize("G,D", [(1, 64), (4, 64), (8, 64), (1, 128),
+                                 (4, 128), (8, 128)])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_cuda_paged_decode_block_sizes_and_edges(cuda, kind, G, D, bs):
+    """Rows of 0, 1, 63, 64, 65, bs, bs + 1 tokens and a full table, at
+    block sizes below, at and above the kernel's 64-token range (a range
+    spans pages, a page spans ranges), with NaN in the trash block: the
+    kernel never reads a table entry at or past ceil(kv_len / bs)."""
+    pages = max(3, -(-300 // bs))
+    lens = [0, 1, 63, 64, 65, bs, bs + 1, pages * bs]
+    case = _paged_on_card(cuda, kind, KH=2, G=G, D=D, bs=bs, lens=lens,
+                          pages=pages, trash=float("nan"))
+    q, kp, vp, tables, kv_len, kw = case
+    key = ("paged_decode_attention_int8" if kw
+           else "paged_decode_attention")
+    before = paged_decode_attention.launches[key]
+    got = ops.paged_decode_attention(q, kp, vp, tables, kv_len, **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches[key] == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all()), "the trash block leaked in"
+    assert bool((got[0] == 0).all()), "kv_len 0 must give zeros"
+    tol = CUDA_TOL[q.dtype]
+    torch.testing.assert_close(got.float(), _paged_ref(*case).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", PAGED_KINDS)
+def test_cuda_paged_decode_back_to_back_and_two_streams(cuda, kind):
+    """Calls of different shapes in a row on one stream, then the first
+    again, with no synchronization between; then two calls at once on two
+    streams: a workspace reused too early or a combine ticket left set
+    would corrupt a later result."""
+    shapes = [dict(KH=8, G=4, D=64, bs=128, pages=8,
+                   lens=[1024, 0, 700, 64, 1, 129, 513, 300]),
+              dict(KH=4, G=8, D=128, bs=16, pages=40,
+                   lens=[640, 130, 17]),
+              dict(KH=16, G=1, D=128, bs=64, pages=16,
+                   lens=[64, 65, 1024, 241, 267, 87, 110, 71])]
+    cases = [_paged_on_card(cuda, kind, seed=i, **s)
+             for i, s in enumerate(shapes)]
+    cases.append(cases[0])
+    run = lambda c: ops.paged_decode_attention(*c[:5], **c[5])
+    outs = [run(c) for c in cases]
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[cases[0][0].dtype]
+    for c, got in zip(cases, outs):
+        torch.testing.assert_close(got.float(), _paged_ref(*c).float(),
+                                   atol=tol, rtol=tol)
+    torch.testing.assert_close(outs[0], outs[-1], atol=0, rtol=0)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    both = []
+    for s, c in zip(streams, cases[:2]):
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            both.append(run(c))
+    torch.cuda.synchronize()
+    for got, want in zip(both, outs[:2]):
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
@@ -212,7 +332,11 @@ def test_cuda_wkv6_matches_plain(cuda, dt, B, H, T, N):
 
 @pytest.mark.cuda
 def test_cuda_wkv6_refuses_what_it_does_not_take(cuda):
+    """The wrapper, and the op through it, refuse head size 16, a wrong
+    dtype and a layout the kernel does not take."""
     r, k, v, w, u = wkv_case(cuda, B=1, H=2, T=8, N=16, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head size"):
+        rwkv6_scan.wkv6_cuda(r, k, v, w, u)
     with pytest.raises(ValueError, match="head size"):
         ops.wkv6(r, k, v, w, u)
     r, k, v, w, u = wkv_case(cuda, B=1, H=2, T=8, N=64, dtype=torch.float32)
@@ -442,8 +566,13 @@ def test_cuda_moe_op_matches_plain_and_its_gradient(cuda, dt):
 
 @pytest.mark.cuda
 def test_cuda_decode_and_moe_refuse_what_they_do_not_take(cuda):
+    """The decode wrapper, and the op through it, refuse head dim 32; a
+    layout, dtype or index type the kernels do not take raises too."""
     q = torch.zeros(2, 2, 1, 32, device=cuda)
     kv = torch.zeros(2, 2, 8, 32, device=cuda)
+    kv_len = torch.tensor([3, 3], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        decode_attention.decode_attention_cuda(q, kv, kv, kv_len)
     with pytest.raises(ValueError, match="head dim"):
         ops.decode_attention(q, kv, kv, 3)
     q = torch.zeros(2, 2, 1, 64, device=cuda)
@@ -560,8 +689,11 @@ def test_cuda_mamba_scan_refuses_what_it_does_not_take(cuda):
     dt_, Bm, Cm, x, A, D, h0 = mamba_case(cuda, B=1, S=8, di=64, N=16,
                                           dtype=torch.float32)
     big = torch.zeros(1, 8, 17, device=cuda)
+    A17 = torch.zeros(64, 17, device=cuda)
     with pytest.raises(ValueError, match="state size"):
-        ops.mamba_scan(dt_, big, big, x, torch.zeros(64, 17, device=cuda), D)
+        mamba_scan.mamba_scan_cuda(dt_, big, big, x, A17, D)
+    with pytest.raises(ValueError, match="state size"):
+        ops.mamba_scan(dt_, big, big, x, A17, D)
     with pytest.raises(ValueError, match="all the same"):
         ops.mamba_scan(dt_.bfloat16(), Bm, Cm, x, A, D)
     with pytest.raises(ValueError, match="A must be"):
@@ -571,3 +703,33 @@ def test_cuda_mamba_scan_refuses_what_it_does_not_take(cuda):
                        .transpose(0, 2), A, D)
     with pytest.raises(ValueError, match="initial_state"):
         ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_launchers_run_at_their_default_sizes(cuda, tmp_path):
+    """The serve command at its default width and depth (llama3.2-1b at its
+    published width in 4 layers) and the train command as its docstring
+    gives it (``--depth 8``) reach their end on the card through the
+    kernels; a width whose heads the kernels do not take (256: head dim 8)
+    is refused before anything is built, naming ``--width 0``."""
+    from repro_torch.launch import serve, train
+    ops.reset_launch_counts()
+    out = serve.main(["--requests", "4", "--gen", "4"])
+    counts = ops.launch_counts()
+    assert len(out["completions"]) == 4
+    assert all(len(c.tokens) == 4 for c in out["completions"])
+    assert counts["paged_decode_attention"] > 0, counts
+    ops.reset_launch_counts()
+    hist = train.main(["--arch", "llama3.2-1b", "--depth", "8", "--steps",
+                       "2", "--log-every", "1", "--ckpt-every", "0",
+                       "--ckpt-dir", str(tmp_path)])
+    counts = ops.launch_counts()
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
+    assert counts["flash_attention"] > 0, counts
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="--width 0"):
+        serve.main(["--width", "256", "--requests", "4", "--gen", "4"])
+    with pytest.raises(ValueError, match="--width 0"):
+        train.main(["--width", "256", "--depth", "8", "--steps", "2",
+                    "--ckpt-every", "0", "--ckpt-dir", str(tmp_path)])
+    assert all(v == 0 for v in ops.launch_counts().values())

@@ -20,7 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import configs as C
 from repro.kernels import ops as jops
@@ -250,3 +250,22 @@ def test_split_plan_never_gives_an_empty_range():
         T = int(rng.integers(1, 70000))
         chunk, splits = _dk.split_plan(B, KH, T)
         assert chunk >= _dk.RANGE and (splits - 1) * chunk < T
+
+
+# the paged kernel splits each row's pages * block_size tokens the same way
+@pytest.mark.parametrize("B,KH,bs,pages", [
+    (8, 8, 128, 8), (8, 16, 128, 8), (4, 8, 16, 64), (8, 8, 32, 32),
+    (3, 2, 1, 300), (64, 8, 128, 256), (256, 16, 16, 2048)], ids=[
+        "llama", "olmoe", "bs16", "bs32", "bs1", "long", "large"])
+def test_split_plan_at_paged_shapes(B, KH, bs, pages):
+    """Ranges of whole tiles cover the table's pages * bs tokens, none is
+    empty, and the grid stays under its cap (all but each row's last,
+    partial range) wherever ranges had to grow past RANGE tokens."""
+    T = pages * bs
+    chunk, splits = _dk.split_plan(B, KH, T)
+    assert chunk % _dk._TILE == 0 and chunk % _dk.RANGE == 0
+    assert (splits - 1) * chunk < T <= splits * chunk
+    if chunk > _dk.RANGE:
+        assert B * KH * (splits - 1) < _dk._CAP
+    else:
+        assert B * KH * splits <= _dk._CAP

@@ -12,7 +12,7 @@ import sys
 from pathlib import Path
 
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"

@@ -12,7 +12,7 @@ The CUDA kernels themselves are tested in ``test_torch_cuda.py``.
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro.kernels import mha_xla
 from repro.kernels import ops as jops

@@ -32,7 +32,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+torch = pytest.importorskip("torch")
 
 from repro import configs as C
 from repro.checkpoint import CheckpointManager as JCheckpointManager
