@@ -16,12 +16,15 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    f32 / bf16 at both, dense split-KV decode f32 / bf16 at olmoe's
    (8, 16, 1, 128) and llama3.2's (8, 8, 4, 64) over a 1024-token cache,
    MoE scatter and gather f32 / bf16 at olmoe's decode shape (B 8, S 1,
-   K 8, C 8) and chunk shape (B 1, S 256, C 40)), with ragged kv_len,
-   tables that point at the trash block and a prompt length that is not
-   a multiple of 128; at jamba-1.5-large's shapes (paged and dense decode
-   q (8, 8, 8, 128), flash q (1, 64, 675, 128) against a 1024-token row,
-   MoE scatter and gather at D 8192, E 16, K 2, decode and chunk; the
-   selective scan f32 / bf16 at the chunk shape (1, 256, 16384, N 16) and
+   K 8, C 8), chunk shape (B 1, S 256, C 40) and stall-the-world prefill
+   (B 1, S 700, C 112; S 1024, C 160, where the scatter builds its slot
+   map first), each beside its time before the one-pass redesign), with
+   ragged kv_len, tables that point at the trash block and a prompt
+   length that is not a multiple of 128; at jamba-1.5-large's shapes
+   (paged and dense decode q (8, 8, 8, 128), flash q (1, 64, 675, 128)
+   against a 1024-token row, MoE scatter and gather at D 8192, E 16, K 2,
+   decode, chunk and prefill (S 700); the selective scan f32 / bf16 at
+   the chunk shape (1, 256, 16384, N 16) and
    the decode shape (8, 1, 16384) with a carried state, a stall prefill
    (1, 675) with a state, the stateless forward (1, 512), N 8; rows with
    dt = 0 keep their state bitwise; flash f32 / bf16 at a long prompt
@@ -30,9 +33,16 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    train step's shapes (flash causal q (8, 32, 256, 64), WKV6 (8, 32, 256,
    64) f32 / bf16).  One JSON line per phase: error and tolerance, the
    kernel's, the plain version's and the library call's time, and the
-   bound.  Then the gradients of the kernels' autograd Functions (forward
-   the kernel, backward the plain version's gradient) against the plain
-   versions' own autograd.
+   bound.  The library calls are yardsticks only, never on the port's
+   path: SDPA for attention, ``index_put_`` into a zeroed buffer for the
+   MoE scatter, ``F.embedding_bag`` (mode "sum", the gates as per-sample
+   weights) for the MoE gather.  Before the kernels, the launch floor:
+   the time of one near-empty kernel (``torch.cuda._sleep(0)``) under the
+   same timer, what a decode-shape kernel cannot go below; the MoE
+   phases also give the kernel's own device duration from the profiler
+   (``kernel_device_ms``, no launch).  Then the gradients of the kernels'
+   autograd Functions (forward the kernel, backward the plain version's
+   gradient) against the plain versions' own autograd.
 3. reference: a small llama served on the card and on the CPU (plain
    versions) with the same weights; first-token logits must agree.  The
    same for a small olmoe (head dim 128) and a small jamba (4 layers in
@@ -60,7 +70,8 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    the scan, the MoE kernels and its attention kernels, with the prefix
    cache requested in (a) and off (a recurrent stack); then its
    ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Each
-   full-width run is profiled once more for the device's busy share.
+   full-width run is profiled once more for the device's busy share, its
+   top kernels and the MoE kernels' share of its device time.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
    batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
    with the train command's settings.  Launch counts are reset before and
@@ -143,6 +154,38 @@ PAGED_BEFORE_MS = {"paged-f32": 0.136, "paged-bf16": 0.141,
                    "paged-int8": 0.146, "paged-d128-f32": 0.249,
                    "paged-d128-bf16": 0.254, "paged-jamba-f32": 0.275,
                    "paged-jamba-bf16": 0.286}
+# the MoE kernels' times before their one-pass redesign (ms, same phases
+# and shapes, L2 flushed, on "NVIDIA H100 80GB HBM3, 700.00 W"; the
+# scatter's includes the torch.zeros memset of its buffer), as PERF.md's
+# kernel table records them; the prefill phases' from the old kernels'
+# tree timed by tools/moe_ab.py on this timer
+MOE_BEFORE_MS = {
+    "moe-scatter-prefill700-f32": 0.0423,
+    "moe-scatter-prefill700-bf16": 0.0235,
+    "moe-scatter-prefill1024-f32": 0.0600,
+    "moe-scatter-prefill1024-bf16": 0.0312,
+    "moe-scatter-prefill700-jamba-f32": 0.0490,
+    "moe-scatter-prefill700-jamba-bf16": 0.0262,
+    "moe-gather-prefill700-f32": 0.0296,
+    "moe-gather-prefill700-bf16": 0.0183,
+    "moe-gather-prefill1024-f32": 0.0385,
+    "moe-gather-prefill1024-bf16": 0.0239,
+    "moe-gather-prefill700-jamba-f32": 0.0335,
+    "moe-gather-prefill700-jamba-bf16": 0.0207,
+    "moe-scatter-decode-f32": 0.0198, "moe-scatter-decode-bf16": 0.0136,
+    "moe-scatter-chunk-f32": 0.0191, "moe-scatter-chunk-bf16": 0.0135,
+    "moe-scatter-decode-jamba-f32": 0.0224,
+    "moe-scatter-decode-jamba-bf16": 0.0161,
+    "moe-scatter-chunk-jamba-f32": 0.0215,
+    "moe-scatter-chunk-jamba-bf16": 0.0152,
+    "moe-gather-decode-f32": 0.0139, "moe-gather-decode-bf16": 0.0102,
+    "moe-gather-chunk-f32": 0.0186, "moe-gather-chunk-bf16": 0.0127,
+    "moe-gather-decode-jamba-f32": 0.0145,
+    "moe-gather-decode-jamba-bf16": 0.0104,
+    "moe-gather-chunk-jamba-f32": 0.0204,
+    "moe-gather-chunk-jamba-bf16": 0.0136}
+# device time of these kernels is read out of each serve profile by name
+PROFILE_WATCH = ("moe_scatter", "moe_gather")
 # the train command's optimizer and step settings (launch/train.py)
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
 TRAIN_CFG = {"q_chunk": 256, "time_chunk": 32, "remat": True}
@@ -209,6 +252,24 @@ class Timer:
             e.synchronize()
             total += s.elapsed_time(e)
         return total / iters
+
+
+def kernel_device_ms(torch, timer, fn, name: str, iters: int = 20):
+    """Device duration (ms) a call of the kernels whose names hold
+    ``name``, the mean over ``iters`` calls of ``fn``, each after the
+    timer's L2 flush, read from ``torch.profiler``'s raw events: the
+    kernels alone, without the launch that the event timer's readings
+    include."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if name in e.name()]
+    return sum(ns) / iters / 1e6 if ns else None
 
 
 def bound(bytes_: float, flops: float, dtype: str, exps: float = 0.0):
@@ -472,6 +533,36 @@ def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
     return res
 
 
+def moe_gather_library(out, lin, gates):
+    """The MoE gather as one PyTorch call, the gather kernel's yardstick
+    (never on the port's path): ``F.embedding_bag`` in mode "sum" over the
+    (B * n_slots, D) expert outputs, bag (b, s) the K rows
+    ``min(lin, n_slots - 1) + b * n_slots`` weighted by the gates (in
+    out's dtype).  A zero gate multiplies its row, so unlike the kernel
+    it needs finite rows where gates are zero."""
+    import torch
+    import torch.nn.functional as F
+    B, n_slots, D = out.shape
+    S, K = lin.shape[1:]
+    idx = (lin.clamp(max=n_slots - 1)
+           + n_slots * torch.arange(B, device=lin.device,
+                                    dtype=lin.dtype)[:, None, None])
+    y = F.embedding_bag(idx.reshape(B * S, K), out.reshape(B * n_slots, D),
+                        mode="sum",
+                        per_sample_weights=gates.reshape(B * S, K)
+                        .to(out.dtype))
+    return y.reshape(B, S, D)
+
+
+def phase_launch_floor(torch, timer):
+    """One near-empty kernel under the kernel phases' timer: the launch and
+    ramp that every kernel time below includes."""
+    res = {"phase": "launch-floor",
+           "kernel_ms": timer(lambda: torch.cuda._sleep(0), iters=50)}
+    emit(res)
+    return res
+
+
 def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
               D=2048):
     """olmoe's MoE scatter and gather at the engine's shapes: routing of K
@@ -505,6 +596,8 @@ def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
     lib_err = float((library() - want).float().abs().max())
     y = moe_dispatch.moe_gather_cuda(out, lin, gates)
     y_want = ref.moe_gather_ref(out, lin, gates)
+    gather_lib = lambda: moe_gather_library(out, lin, gates)
+    gather_lib_err = float((gather_lib() - y_want).float().abs().max())
     torch.cuda.synchronize()
     shape = {"B": B, "S": S, "K": K, "E": E, "C": C, "D": D,
              "kept_assignments": kept, "assignments": B * S * K}
@@ -517,17 +610,21 @@ def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
              {"library_max_abs_err": lib_err}),
             ("gather", float((y - y_want).float().abs().max()),
              lambda: moe_dispatch.moe_gather_cuda(out, lin, gates),
-             lambda: ref.moe_gather_ref(out, lin, gates), None,
+             lambda: ref.moe_gather_ref(out, lin, gates), gather_lib,
              lin.numel() * 4 + gates.numel() * 4 + live * D * el
-             + B * S * D * el, 2 * live * D, {})):
+             + B * S * D * el, 2 * live * D,
+             {"library_max_abs_err": gather_lib_err})):
         b_ms, b_by = bound(bytes_, flops, dt)
         res = {"phase": f"moe-{kind}-{name}", "shape": shape,
                "max_abs_err": err, "tol": 0.0 if kind == "scatter"
                else TOL[dt],
                "kernel_ms": timer(kern, iters=50),
                "kernel_call_ms": timer(kern, iters=50, host=True),
+               "kernel_device_ms": kernel_device_ms(torch, timer, kern,
+                                                    f"moe_{kind}"),
                "plain_ms": timer(plain, iters=10),
-               "library_ms": timer(lib, iters=20) if lib else None,
+               "library_ms": timer(lib, iters=20),
+               "before_ms": MOE_BEFORE_MS.get(f"moe-{kind}-{name}"),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_,
                "flops": flops, **extra}
         emit(res)
@@ -1000,10 +1097,13 @@ def phase_reference_moe(torch, device, name, modes, kernels):
 
 def busy_share(torch, fn):
     """Run ``fn`` once under ``torch.profiler`` (device activity only);
-    returns (wall s, device busy s, top kernels).  Busy time is the sum of
-    the device events' durations (kernels, copies, memsets; one stream, so
-    they do not overlap), read from the raw trace: building the profiler's
-    per-operator tables takes minutes for a run of ~10^5 launches."""
+    returns (wall s, device busy s, top kernels, watched kernels).  Busy
+    time is the sum of the device events' durations (kernels, copies,
+    memsets; one stream, so they do not overlap), read from the raw trace:
+    building the profiler's per-operator tables takes minutes for a run of
+    ~10^5 launches.  The watched kernels: device time, count and share of
+    the busy time of the kernels whose names hold each of
+    ``PROFILE_WATCH``."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1023,7 +1123,13 @@ def busy_share(torch, fn):
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     top = [{"name": name[:80], "device_ms": ns / 1e6, "count": n}
            for name, (ns, n) in rows[:10]]
-    return wall, busy, top
+    watched = {}
+    for w in PROFILE_WATCH:
+        ns = sum(t for name, (t, _) in rows if w in name)
+        watched[w] = {"device_ms": ns / 1e6,
+                      "count": sum(n for name, (_, n) in rows if w in name),
+                      "share": ns / 1e9 / busy if busy else None}
+    return wall, busy, top, watched
 
 
 def profile_run(torch, params, arch, requests, mode, modes, wall_s,
@@ -1038,12 +1144,12 @@ def profile_run(torch, params, arch, requests, mode, modes, wall_s,
         max_batch=8, max_len=1024, dtype=dtype or torch.float32,
         **modes[mode]))
     eng.warmup(sorted({len(r.prompt) for r in requests}))
-    wall, busy, top = busy_share(torch, lambda: eng.run(requests))
+    wall, busy, top, watched = busy_share(torch, lambda: eng.run(requests))
     return {"phase": f"profile-{name}", "wall_s": wall,
             "device_busy_s": busy,
             "device_busy_share": busy / wall if busy else None,
             "device_busy_share_unprofiled": busy / wall_s,
-            "top_kernels": top}
+            "top_kernels": top, "watched_kernels": watched}
 
 
 def serve_modes(torch, params, arch, reqs, device, *, name, modes, need,
@@ -1385,7 +1491,7 @@ def train_full(torch, device, name, kernel, min_per_step, steps=4):
                             and float(t.abs().max()) > 0)]
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    wall, busy, top = busy_share(
+    wall, busy, top, _ = busy_share(
         torch, lambda: step(params, opt, {"tokens": batches[steps]}))
     step_s = sum(times[1:]) / len(times[1:])
     tokens = batches[0].numel()
@@ -1474,6 +1580,7 @@ def main() -> int:
     timer = Timer(torch, device)
     kern = {}
     steps = [
+        ("launch-floor", lambda: phase_launch_floor(torch, timer)),
         ("paged-f32", lambda: phase_paged(torch, timer, device, "paged-f32",
                                           torch.float32, torch.float32)),
         ("paged-bf16", lambda: phase_paged(torch, timer, device,
@@ -1528,6 +1635,18 @@ def main() -> int:
         ("moe-chunk-bf16", lambda: phase_moe(
             torch, timer, device, "chunk-bf16", torch.bfloat16, B=1, S=256,
             C=40)),
+        ("moe-prefill700-f32", lambda: phase_moe(
+            torch, timer, device, "prefill700-f32", torch.float32, B=1,
+            S=700, C=112)),
+        ("moe-prefill700-bf16", lambda: phase_moe(
+            torch, timer, device, "prefill700-bf16", torch.bfloat16, B=1,
+            S=700, C=112)),
+        ("moe-prefill1024-f32", lambda: phase_moe(
+            torch, timer, device, "prefill1024-f32", torch.float32, B=1,
+            S=1024, C=160)),
+        ("moe-prefill1024-bf16", lambda: phase_moe(
+            torch, timer, device, "prefill1024-bf16", torch.bfloat16, B=1,
+            S=1024, C=160)),
         ("paged-jamba-f32", lambda: phase_paged(
             torch, timer, device, "paged-jamba-f32", torch.float32,
             torch.float32, KH=8, G=8, D=128)),
@@ -1564,6 +1683,12 @@ def main() -> int:
         ("moe-chunk-jamba-bf16", lambda: phase_moe(
             torch, timer, device, "chunk-jamba-bf16", torch.bfloat16, B=1,
             S=256, C=40, K=2, E=16, D=8192)),
+        ("moe-prefill700-jamba-f32", lambda: phase_moe(
+            torch, timer, device, "prefill700-jamba-f32", torch.float32,
+            B=1, S=700, C=112, K=2, E=16, D=8192)),
+        ("moe-prefill700-jamba-bf16", lambda: phase_moe(
+            torch, timer, device, "prefill700-jamba-bf16", torch.bfloat16,
+            B=1, S=700, C=112, K=2, E=16, D=8192)),
         ("mamba-chunk-f32", lambda: phase_mamba(
             torch, timer, device, "mamba-chunk-f32", torch.float32, B=1,
             S=256)),
@@ -1657,10 +1782,11 @@ def main() -> int:
              "src/repro_torch/csrc/mamba_scan.cu",
              "src/repro/kernels/mamba_scan.py:139")]
     kernels = []
-    # the two kernels with a tensor-core / bf16 form also carry their
-    # bfloat16 numbers at the same shape
+    # kernels timed in bfloat16 too carry those numbers at the same shape
     bf16_phase = {"flash_attention": "flash-bf16",
-                  "decode_attention": "decode-olmoe-bf16"}
+                  "decode_attention": "decode-olmoe-bf16",
+                  "moe_scatter": "moe-scatter-decode-bf16",
+                  "moe_gather": "moe-gather-decode-bf16"}
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
         by_path = {path: c[name] for path, c in counts.items()

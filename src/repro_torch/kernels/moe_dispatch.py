@@ -8,13 +8,19 @@ and any shape: the TPU path is gated on a 4 MiB VMEM budget for the
 already exceeds (513 slots x 2048 x 4 B); these have no such limit.
 
 * :func:`moe_scatter_cuda` — lin (B, S, K) int32 and x (B, S, D) -> buf
-  (B, E*C + 1, D).  The buffer comes from ``torch.zeros`` (one memset)
-  just before the launch: every slot feeds the expert FFN, and a slot no
-  token fills must hold zeros.  Dropped assignments (the trash slot) are
-  skipped.  Plain version :func:`repro_torch.kernels.ref.moe_scatter_ref`.
+  (B, E*C + 1, D).  The buffer comes from ``torch.empty``: the kernel
+  writes every row of it once, x's row into each kept slot and zeros
+  into every slot no token fills (they feed the expert FFN) and into the
+  trash row, in one pass, as the TPU kernel zeroes its buffer itself.
+  From ``SCATTER_MAP_MIN`` assignments (S*K) up, a first launch writes a
+  slot -> token map into a ``torch.empty`` workspace that the row kernel
+  reads, instead of every CTA scanning all of lin; the call still counts
+  one ``moe_scatter`` launch.
+  Plain version :func:`repro_torch.kernels.ref.moe_scatter_ref`.
 * :func:`moe_gather_cuda` — lin, out (B, E*C, D) and gates (B, S, K)
-  float32 -> y (B, S, D), float32 accumulation, zero gates skipped.
-  Plain version :func:`repro_torch.kernels.ref.moe_gather_ref`.
+  float32 -> y (B, S, D), float32 accumulation; a row whose gate is zero
+  is never read.  Plain version
+  :func:`repro_torch.kernels.ref.moe_gather_ref`.
 
 :func:`moe_dispatch_combine` runs slot assignment (plain torch), the
 scatter kernel, the expert FFN (``torch.einsum``) and the gather kernel:
@@ -36,6 +42,9 @@ from . import build, ref
 
 #: launches since the last reset; each wrapper adds one where it launches
 launches = {"moe_scatter": 0, "moe_gather": 0}
+#: S*K from which the scatter builds its slot -> token map in a launch of
+#: its own, read by every CTA, instead of each CTA scanning all of lin[b]
+SCATTER_MAP_MIN = 8192
 
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -72,11 +81,15 @@ def moe_scatter_cuda(x, lin, n_slots: int):
     buf (B, n_slots + 1, D) in x's dtype."""
     B, S, D = x.shape
     _check("moe_scatter", (x, lin), x, lin, B, S)
-    buf = torch.zeros(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
+    buf = torch.empty(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
+    K = lin.shape[2]
+    slot_map = (torch.empty(B, n_slots, dtype=torch.int32, device=x.device)
+                if S * K >= SCATTER_MAP_MIN else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn("moe_scatter", 3)(lin.data_ptr(), x.data_ptr(), buf.data_ptr(),
-                                B, S, lin.shape[2], n_slots, D,
-                                _DTYPE[x.dtype], stream)
+    err = _fn("moe_scatter", 4)(
+        lin.data_ptr(), x.data_ptr(), buf.data_ptr(),
+        None if slot_map is None else slot_map.data_ptr(), B, S, K, n_slots,
+        D, _DTYPE[x.dtype], stream)
     build.check(err, "moe_scatter")
     launches["moe_scatter"] += 1
     return buf

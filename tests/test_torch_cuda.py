@@ -564,6 +564,226 @@ def test_cuda_moe_op_matches_plain_and_its_gradient(cuda, dt):
         torch.testing.assert_close(a, b, atol=tol, rtol=0)
 
 
+def _moe_check(x, lin, gates, n_slots, *, nan_rows=True):
+    """Scatter bitwise and gather at CUDA_TOL against the plain versions;
+    the gather reads expert outputs whose unread rows hold NaN."""
+    B, S, D = x.shape
+    buf = moe_dispatch.moe_scatter_cuda(x, lin, n_slots)
+    want = ref.moe_scatter_ref(x, lin, n_slots)
+    out = torch.randn(B, n_slots, D, device=x.device).to(x.dtype)
+    if nan_rows:
+        used = torch.zeros(B, n_slots, dtype=torch.int32, device=x.device)
+        used.scatter_add_(1, lin.reshape(B, -1).long().clamp(max=n_slots - 1),
+                          (gates.reshape(B, -1) != 0).int())
+        out[used == 0] = float("nan")
+    y = moe_dispatch.moe_gather_cuda(out, lin, gates)
+    y_want = ref.moe_gather_ref(out, lin, gates)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(buf, want, atol=0, rtol=0, equal_nan=False)
+    assert bool(torch.isfinite(y).all())
+    tol = CUDA_TOL[x.dtype]
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    return buf, y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,K,E,C,D", [(8, 1, 8, 64, 8, 2048),
+                                         (1, 256, 2, 16, 40, 1024),
+                                         (2, 13, 3, 8, 4, 60)])
+def test_cuda_moe_scatter_zeroes_a_buffer_that_held_nan(cuda, dt, B, S, K, E,
+                                                        C, D):
+    """The scatter's buffer comes from ``torch.empty``: a block of the same
+    size filled with NaN and freed first is what the caching allocator
+    hands it, so a row the kernel fails to write shows."""
+    x, _, lin, gates = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C,
+                                       D=D, seed=K)
+    stale = torch.full((B, E * C + 1, D), float("nan"), dtype=dt,
+                       device=cuda)
+    ptr = stale.data_ptr()
+    del stale
+    buf = moe_dispatch.moe_scatter_cuda(x, lin, E * C)
+    torch.cuda.synchronize()
+    assert buf.data_ptr() == ptr        # the NaN block was reused
+    assert bool(torch.isfinite(buf).all())
+    torch.testing.assert_close(buf, ref.moe_scatter_ref(x, lin, E * C),
+                               atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,K,E,C,D", [(2, 2048, 8, 64, 320, 64),
+                                         (1, 700, 2, 16, 112, 256),
+                                         (8, 256, 8, 64, 40, 32),
+                                         (1, 4096, 2, 16, 640, 512)])
+@pytest.mark.parametrize("map_min", [0, 1 << 30], ids=["map", "scan"])
+def test_cuda_moe_many_assignments(cuda, dt, B, S, K, E, C, D, map_min,
+                                   monkeypatch):
+    """S*K well past one CTA's 1,024 lin loads a pass (16,384 at the first
+    shape), at the chunk, prefill and train shapes' S*K, with the scatter
+    made to build its slot map or to scan lin in every CTA; the last shape
+    takes the gather's four-warp CTAs."""
+    monkeypatch.setattr(moe_dispatch, "SCATTER_MAP_MIN", map_min)
+    x, _, lin, gates = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C,
+                                       D=D, seed=S)
+    _moe_check(x, lin, gates, E * C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,K,E,C,D", [(8, 1, 8, 64, 8, 256),
+                                         (1, 256, 8, 64, 40, 128),
+                                         (2, 700, 2, 16, 112, 62)])
+def test_cuda_moe_scatter_slot_map_or_scan_ignores_stale_entries(
+        cuda, dt, B, S, K, E, C, D):
+    """The scatter's two ways to find a slot row's token, each CTA scanning
+    lin or a slot map built by a first launch, both bitwise equal to the
+    plain version in a NaN-filled buffer; the map here first holds indices
+    of real assignments (as a freed map of another call would), which the
+    kernel must not trust where lin disagrees."""
+    x, _, lin, _ = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C, D=D,
+                                   seed=S)
+    n_slots = E * C
+    want = ref.moe_scatter_ref(x, lin, n_slots)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    stale = torch.randint(0, S * K, (B, n_slots), generator=g, device=cuda,
+                          dtype=torch.int32)
+    for slot_map in (None, stale):
+        buf = torch.full((B, n_slots + 1, D), float("nan"), dtype=dt,
+                         device=cuda)
+        err = moe_dispatch._fn("moe_scatter", 4)(
+            lin.data_ptr(), x.data_ptr(), buf.data_ptr(),
+            None if slot_map is None else slot_map.data_ptr(), B, S, K,
+            n_slots, D, moe_dispatch._DTYPE[dt],
+            torch.cuda.current_stream().cuda_stream)
+        moe_dispatch.build.check(err, "moe_scatter")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(buf, want, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_moe_every_assignment_dropped_or_every_slot_filled(cuda, dt):
+    """Every lin at the trash slot with zero gates: an all-zero buffer and
+    y; then S*K == E*C with each expert taking exactly C tokens: every slot
+    row holds a token, only the trash row is zero."""
+    B, S, K, E, C, D = 2, 16, 2, 8, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(B, S, D, generator=g, device=cuda).to(dt)
+    lin = torch.full((B, S, K), E * C, dtype=torch.int32, device=cuda)
+    gates = torch.zeros(B, S, K, device=cuda)
+    buf, y = _moe_check(x, lin, gates, E * C)
+    assert not bool(buf.any()) and not bool(y.any())
+    s = torch.arange(S, device=cuda)
+    idx = torch.stack([s % E, (s + E // 2) % E], -1)[None].expand(B, S, K)
+    lin, keep = ref.moe_positions(idx.contiguous(), E, C)
+    assert bool(keep.all())
+    gates = torch.rand(B, S, K, generator=g, device=cuda) + 0.5
+    buf, _ = _moe_check(x, lin.reshape(B, S, K), gates, E * C,
+                        nan_rows=False)
+    assert bool((buf[:, :-1] != 0).any(-1).all())
+    assert not bool(buf[:, -1].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [61, 62, 64, 2048])
+def test_cuda_moe_unaligned_rows_and_views(cuda, dt, D):
+    """Rows whose bytes are no multiple of 16 (D 61 and 62) and inputs one
+    element off a 16-byte boundary take the one-element paths; a scatter
+    into a buffer framed by sentinel bands, itself misaligned, writes every
+    row and nothing outside."""
+    B, S, K, E, C = 2, 13, 2, 8, 4
+    x, _, lin, gates = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C,
+                                       D=D, seed=D)
+    _moe_check(x, lin, gates, E * C)
+    n_slots = E * C
+    shift = lambda t: torch.cat([t.new_zeros(1), t.flatten()])[1:].view(
+        t.shape)
+    xs = shift(x)
+    assert xs.data_ptr() % 16 != 0 and xs.is_contiguous()
+    _moe_check(xs, lin, gates, n_slots)
+    n, band = B * (n_slots + 1) * D, 3 * D + 1
+    frame = torch.full((band + n + band,), 7.0, dtype=dt, device=cuda)
+    buf = frame[band:band + n].view(B, n_slots + 1, D)
+    err = moe_dispatch._fn("moe_scatter", 4)(
+        lin.data_ptr(), x.data_ptr(), buf.data_ptr(), None, B, S, K, n_slots,
+        D, moe_dispatch._DTYPE[dt], torch.cuda.current_stream().cuda_stream)
+    moe_dispatch.build.check(err, "moe_scatter")
+    torch.cuda.synchronize()
+    assert bool((frame[:band] == 7.0).all())
+    assert bool((frame[band + n:] == 7.0).all())
+    torch.testing.assert_close(buf, ref.moe_scatter_ref(x, lin, n_slots),
+                               atol=0, rtol=0)
+    out = torch.randn(B, n_slots, D, device=cuda).to(dt)
+    outs = shift(out)
+    torch.testing.assert_close(
+        moe_dispatch.moe_gather_cuda(outs, lin, gates).float(),
+        ref.moe_gather_ref(out, lin, gates).float(), atol=CUDA_TOL[dt],
+        rtol=CUDA_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 8, 9])
+@pytest.mark.parametrize("S,D", [(24, 256), (2048, 257)],
+                         ids=["warp", "wide"])
+def test_cuda_moe_gather_every_k(cuda, dt, K, S, D):
+    """The gather's K row loads go out in one exact batch for K 8 and in
+    predicated batches of 4 for any other K (K 1, 2, 3 one partial
+    batch, K 5 and 9 whole batches and a remainder), with drops and NaN
+    in the rows no kept assignment reads; in one-warp CTAs, and (8,192
+    tokens, D 257 a unit an element) in four-warp ones."""
+    B, E = 4, 16
+    C = max(6, S * K // (2 * E))
+    x, _, lin, gates = moe_kernel_case(cuda, dt, B=B, S=S, K=K, E=E, C=C,
+                                       D=D, seed=K)
+    _moe_check(x, lin, gates, E * C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_moe_back_to_back_and_two_streams(cuda, dt):
+    """Shapes in a row on one stream with no synchronization between, then
+    two at once on two streams: each result equals its own call's on the
+    default stream."""
+    shapes = [dict(B=8, S=1, K=8, E=64, C=8, D=2048),
+              dict(B=1, S=256, K=2, E=16, C=40, D=1024),
+              dict(B=2, S=13, K=3, E=8, C=4, D=62)]
+    cases = []
+    for i, s in enumerate(shapes):
+        x, _, lin, gates = moe_kernel_case(cuda, dt, seed=i, **s)
+        out = torch.randn(s["B"], s["E"] * s["C"], s["D"], device=cuda).to(dt)
+        cases.append((x, lin, gates, out, s["E"] * s["C"]))
+    run = lambda c: (moe_dispatch.moe_scatter_cuda(c[0], c[1], c[4]),
+                     moe_dispatch.moe_gather_cuda(c[3], c[1], c[2]))
+    outs = [run(c) for c in cases]
+    torch.cuda.synchronize()
+    for (x, lin, gates, out, n_slots), (buf, y) in zip(cases, outs):
+        torch.testing.assert_close(buf, ref.moe_scatter_ref(x, lin, n_slots),
+                                   atol=0, rtol=0)
+        torch.testing.assert_close(
+            y.float(), ref.moe_gather_ref(out, lin, gates).float(),
+            atol=CUDA_TOL[dt], rtol=CUDA_TOL[dt])
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    both = []
+    for st, c in zip(streams, cases[:2]):
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            both.append(run(c))
+    torch.cuda.synchronize()
+    for got, want in zip(both, outs[:2]):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
 @pytest.mark.cuda
 def test_cuda_decode_and_moe_refuse_what_they_do_not_take(cuda):
     """The decode wrapper, and the op through it, refuse head dim 32; a

@@ -5,6 +5,9 @@ numpy inputs and the reference's weights (moved across by the bridge):
   gather (the plain versions of the CUDA kernels) against the reference's
   Pallas scatter/gather in interpret mode (``_moe_pallas_impl``), with a
   capacity small enough that assignments are dropped;
+* the gather's library yardstick on the card
+  (``chip_smoke.moe_gather_library``, ``F.embedding_bag``) against the
+  plain gather and the reference's Pallas gather body (1e-6);
 * the plain op (``moe_scatter``, what ``ops.moe_dispatch_combine`` runs
   on the CPU) against ``moe_scatter_xla``, and ``moe_dense_ref`` (the
   function the kernels' backward pass differentiates) against its twin;
@@ -19,6 +22,9 @@ gradients (sums in another order).
 """
 
 import dataclasses
+import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -103,6 +109,60 @@ def test_gather_ref_skips_zero_gates():
     gates = torch.tensor([[[0.5, 0.0], [0.0, 0.0]]])
     y = ref.moe_gather_ref(out, lin, gates)
     assert torch.equal(y, torch.tensor([[[1.0] * 4, [0.0] * 4]]))
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pallas_gather(lin, out, gates):
+    """The reference's Pallas gather body alone, in interpret mode, with
+    the BlockSpecs ``_moe_pallas_impl`` gives it."""
+    B, n_slots, D = out.shape
+    S, K = lin.shape[1:]
+    smem = JMK.pl.BlockSpec((1, S, K), lambda b: (b, 0, 0),
+                            memory_space=JMK.pltpu.SMEM)
+    return JMK.pl.pallas_call(
+        functools.partial(JMK._gather_kernel, S=S, K=K, n_slots=n_slots),
+        grid=(B,),
+        in_specs=[smem,
+                  JMK.pl.BlockSpec((1, n_slots, D), lambda b: (b, 0, 0)),
+                  JMK.pl.BlockSpec((1, S, K), lambda b: (b, 0, 0))],
+        out_specs=JMK.pl.BlockSpec((1, S, D), lambda b: (b, 0, 0)),
+        out_shape=jax.ShapeDtypeStruct((B, S, D), out.dtype),
+        interpret=True,
+    )(lin, out, gates)
+
+
+@pytest.mark.parametrize("C_", [4, 13])
+def test_gather_yardstick_matches_plain_and_pallas(C_):
+    """``chip_smoke.moe_gather_library`` (``F.embedding_bag``, the gather
+    kernel's library yardstick on the card) computes the gather: equal to
+    ``moe_gather_ref`` and to the reference's Pallas gather body within
+    1e-6, and, in the op, to ``_moe_pallas_impl``.  Capacity 4 drops
+    assignments (B 2, S 13, K 2, E 8, D 60); 13 drops none."""
+    E = 8
+    case = moe_case(30 + C_, B=2, S=13, D=60, E=E, K=2)
+    j, t = _both(case)
+    x, gv, idx = t[:3]
+    B, S, K = idx.shape
+    lin, keep = ref.moe_positions(idx, E, C_)
+    assert bool(keep.all()) == (C_ == 13)
+    lin = lin.reshape(B, S, K)
+    gates = (keep.reshape(B, S, K) * gv).float()
+    rng = np.random.default_rng(C_)
+    out = rng.standard_normal((B, E * C_, 60)).astype(np.float32)
+    library = _chip_smoke().moe_gather_library
+    got = library(torch.from_numpy(out), lin, gates)
+    _close(got, ref.moe_gather_ref(torch.from_numpy(out), lin, gates), 1e-6)
+    _close(got, _pallas_gather(jnp.asarray(lin.numpy()), jnp.asarray(out),
+                               jnp.asarray(gates.numpy())), 1e-6)
+    _close(ref.moe_scatter(*t, capacity=C_, gather_rows=library),
+           JMK._moe_pallas_impl(*j, capacity=C_, interpret=True))
 
 
 @pytest.mark.parametrize("C_", [4, 8])
