@@ -31,16 +31,16 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    with jamba's heads, q (1, 64, 4096, 128) against 4096 keys, beside
    SDPA); and at the
    train step's shapes (flash causal q (8, 32, 256, 64), WKV6 (8, 32, 256,
-   64) f32 / bf16).  One JSON line per phase: error and tolerance, the
-   kernel's, the plain version's and the library call's time, and the
-   bound.  The library calls are yardsticks only, never on the port's
+   64) f32 / bf16, each beside its time before the staged redesign).  One
+   JSON line per phase: error and tolerance, the kernel's, the plain
+   version's and the library call's time, and the bound.  The library calls are yardsticks only, never on the port's
    path: SDPA for attention, ``index_put_`` into a zeroed buffer for the
    MoE scatter, ``F.embedding_bag`` (mode "sum", the gates as per-sample
    weights) for the MoE gather.  Before the kernels, the launch floor:
    the time of one near-empty kernel (``torch.cuda._sleep(0)``) under the
-   same timer, what a decode-shape kernel cannot go below; the MoE
-   phases also give the kernel's own device duration from the profiler
-   (``kernel_device_ms``, no launch).  Then the gradients of the kernels'
+   same timer, what a decode-shape kernel cannot go below; the MoE and
+   WKV6 phases also give the kernel's own device duration from the
+   profiler (``kernel_device_ms``, no launch).  Then the gradients of the kernels'
    autograd Functions (forward the kernel, backward the plain version's
    gradient) against the plain versions' own autograd.
 3. reference: a small llama served on the card and on the CPU (plain
@@ -184,6 +184,11 @@ MOE_BEFORE_MS = {
     "moe-gather-decode-jamba-bf16": 0.0104,
     "moe-gather-chunk-jamba-f32": 0.0204,
     "moe-gather-chunk-jamba-bf16": 0.0136}
+# the WKV6 kernel's times before its staged redesign (ms, same phases and
+# shape, L2 flushed, on "NVIDIA H100 80GB HBM3, 700.00 W"): the previous
+# kernel's tree timed by tools/moe_ab.py --kernel wkv6 on this timer, the
+# mean of its two readings at the train shape
+WKV_BEFORE_MS = {"wkv6-f32": 0.1641, "wkv6-bf16": 0.1896}
 # device time of these kernels is read out of each serve profile by name
 PROFILE_WATCH = ("moe_scatter", "moe_gather")
 # the train command's optimizer and step settings (launch/train.py)
@@ -451,6 +456,9 @@ def wkv_inputs(torch, device, dtype, B=8, H=32, T=256, N=64):
 
 
 def phase_wkv6(torch, timer, device, name, dtype):
+    """The WKV6 kernel against its plain version at ``wkv_inputs``' shape
+    (rwkv6-1.6b's train step); its time beside the kernel's before the
+    staged redesign (``WKV_BEFORE_MS``) and its device time alone."""
     from repro_torch.kernels import ops, ref
     r, k, v, w, u = wkv_inputs(torch, device, dtype)
     got = ops.wkv6(r, k, v, w, u)
@@ -471,9 +479,12 @@ def phase_wkv6(torch, timer, device, name, dtype):
            "kernel_ms": timer(lambda: ops.wkv6(r, k, v, w, u), iters=20),
            "kernel_call_ms": timer(lambda: ops.wkv6(r, k, v, w, u), iters=20,
                                    host=True),
+           "kernel_device_ms": kernel_device_ms(
+               torch, timer, lambda: ops.wkv6(r, k, v, w, u), "wkv6"),
            "plain_ms": timer(lambda: ref.wkv6_scan(r, k, v, w, u), iters=3,
                              warm=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "before_ms": WKV_BEFORE_MS.get(name),
            "bytes": bytes_, "flops": flops}
     emit(res)
     if not err <= WKV_TOL[dt] * scale:
@@ -1786,7 +1797,8 @@ def main() -> int:
     bf16_phase = {"flash_attention": "flash-bf16",
                   "decode_attention": "decode-olmoe-bf16",
                   "moe_scatter": "moe-scatter-decode-bf16",
-                  "moe_gather": "moe-gather-decode-bf16"}
+                  "moe_gather": "moe-gather-decode-bf16",
+                  "wkv6": "wkv6-bf16"}
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
         by_path = {path: c[name] for path, c in counts.items()

@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels:
-// 16-byte cp.async, mbarriers, TMA tile loads and the wgmma fences.
+// Hopper (sm_90a) building blocks shared by the kernels: 16-byte cp.async,
+// mbarriers, TMA bulk and tile loads and the wgmma fences.
 // Plain inline PTX, no library; every helper is a single instruction or
 // a short poll loop.
 
@@ -69,6 +69,17 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "DONE:\n"
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
+      : "memory");
+}
+
+// ---- TMA: a contiguous run of bytes global -> shared (16-byte aligned, a
+// multiple of 16 bytes), completion on an mbarrier ------------------------ //
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -316,8 +316,12 @@ WKV_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("B,H,T,N", [(2, 4, 100, 64), (3, 2, 256, 32),
-                                     (1, 3, 1, 64)])
+@pytest.mark.parametrize("B,H,T,N", [
+    (2, 4, 100, 64), (3, 2, 256, 32), (1, 3, 1, 64),
+    (8, 32, 256, 64),                    # rwkv6-1.6b's train step
+    (2, 3, 300, 64), (2, 3, 300, 32),    # 16-step tiles and a tail
+    (1, 2, 32, 64), (2, 2, 64, 32),      # whole tiles only
+    (4, 100, 64, 64)])                   # more CTAs than fit at once
 def test_cuda_wkv6_matches_plain(cuda, dt, B, H, T, N):
     r, k, v, w, u = wkv_case(cuda, B=B, H=H, T=T, N=N, dtype=dt, seed=T)
     before = rwkv6_scan.launches["wkv6"]
@@ -328,6 +332,51 @@ def test_cuda_wkv6_matches_plain(cuda, dt, B, H, T, N):
     assert got.dtype == dt
     tol = WKV_TOL[dt] * float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [32, 64])
+def test_cuda_wkv6_holds_its_state_where_w_is_1_and_k_is_0(cuda, dt, N):
+    """Over steps 40-129 (across tile edges) w = 1 and k = 0: the
+    state stays the one after step 39, so there out_t = r_t . S_39 (the
+    u-term is 0 with k)."""
+    B, H, T = 2, 3, 160
+    r, k, v, w, u = wkv_case(cuda, B=B, H=H, T=T, N=N, dtype=dt, seed=N)
+    k[:, :, 40:130] = 0
+    w[:, :, 40:130] = 1
+    got = ops.wkv6(r, k, v, w, u)
+    want = ref.wkv6_scan(r, k, v, w, u)
+    _, S = ref.wkv6_scan(r[:, :, :40], k[:, :, :40], v[:, :, :40],
+                         w[:, :, :40], u, return_state=True)
+    held = torch.einsum("bhti,bhij->bhtj", r[:, :, 40:130].float(), S)
+    torch.cuda.synchronize()
+    tol = WKV_TOL[dt] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(got[:, :, 40:130].float(), held.to(dt).float(),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_wkv6_takes_unaligned_views(cuda, dt):
+    """Contiguous views one element past a 16-byte boundary (staged by
+    plain loads, not TMA bulk copies) give what aligned copies give."""
+    B, H, T, N = 2, 3, 70, 64
+    inputs = wkv_case(cuda, B=B, H=H, T=T, N=N, dtype=dt)
+    views = []
+    for t in inputs:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    got = ops.wkv6(*views)
+    want = ops.wkv6(*inputs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda

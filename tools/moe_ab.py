@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""A/B timing of the MoE scatter and gather kernels of several checkouts
-of this repository on one GPU, all on one timer.
+"""A/B timing of the MoE scatter and gather kernels, or of the WKV6
+kernel, of several checkouts of this repository on one GPU, all on one
+timer.
 
-    python3 tools/moe_ab.py --run LABEL=DIR[,NAME=VALUE...][,flush=read] \\
+    python3 tools/moe_ab.py [--kernel moe|wkv6] \\
+        --run LABEL=DIR[,NAME=VALUE...][,flush=read] \\
         [--run ...] [--rounds 1] [--shapes decode,chunk,...] \\
         [--out chiprun_out/moe_ab.json]
 
@@ -16,19 +18,28 @@ checkout's ``csrc/moe_dispatch.cu`` and calls that checkout's
 chunk and prefill shapes, float32 and bfloat16, with this checkout's
 ``chip_smoke.Timer`` (events around each call, the L2 flushed by a 96 MB
 write before it), so every checkout is read on the same timer.
-``NAME=VALUE`` sets an integer constant of the checkout's
-``repro_torch.kernels.moe_dispatch`` first (``SCATTER_MAP_MIN=0``).
+``--kernel wkv6`` builds the checkout's ``csrc/rwkv6_scan.cu`` instead
+and calls its ``chip_smoke.phase_wkv6`` at rwkv6-1.6b's train shape
+(8, 32, 256, 64), at few (b, h) over a long sequence (1, 32, 2048, 64) and
+at head size 32 (3, 2, 256, 32), float32 and bfloat16, each shape given
+through the checkout's ``chip_smoke.wkv_inputs``.
+``NAME=VALUE`` sets an integer constant of the checkout's kernel module
+(``repro_torch.kernels.moe_dispatch`` or ``.rwkv6_scan``) first
+(``SCATTER_MAP_MIN=0``).
 ``flush=read`` flushes the L2 with a 96 MB read instead: the lines left
 behind are clean, so a kernel's own traffic does not write them back.
 
 Prints each process's phases as JSON lines, then one line per phase and
 run with the mean ``kernel_ms`` over the rounds and each reading; writes
-everything to ``--out``.  Exits nonzero if a phase failed its check.
+everything to ``--out`` (default ``chiprun_out/<kernel>_ab.json``).
+Exits nonzero if a phase failed its check.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import importlib
 import importlib.util
 import json
 import subprocess
@@ -41,7 +52,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # (K 2, E 16, D 8192) decode step, 256-token chunk, and stall-the-world
 # prefill of the smoke's longest prompt (700) and of 1024-4096 tokens,
 # each C as models/moe.py::capacity gives it
-SHAPES = [
+MOE_SHAPES = [
     ("decode", dict(B=8, S=1, C=8)),
     ("chunk", dict(B=1, S=256, C=40)),
     ("prefill700", dict(B=1, S=700, C=112)),
@@ -53,6 +64,15 @@ SHAPES = [
     ("prefill700-jamba", dict(B=1, S=700, C=112, K=2, E=16, D=8192)),
     ("prefill4096-jamba", dict(B=1, S=4096, C=640, K=2, E=16, D=8192)),
 ]
+# (name, wkv_inputs' kwargs): rwkv6-1.6b's train step (B 8 x 256 tokens,
+# 32 heads of 64), 32 CTAs over 2048 steps, head size 32
+WKV6_SHAPES = [
+    ("train", dict(B=8, H=32, T=256, N=64)),
+    ("long", dict(B=1, H=32, T=2048, N=64)),
+    ("n32", dict(B=3, H=2, T=256, N=32)),
+]
+SHAPES = {"moe": MOE_SHAPES, "wkv6": WKV6_SHAPES}
+MODULE = {"moe": "moe_dispatch", "wkv6": "rwkv6_scan"}
 
 
 def load(path: Path, name: str):
@@ -74,28 +94,35 @@ class ReadFlush:
         self.buf.view(torch.int32).sum()
 
 
-def worker(spec: str, shapes: list[str]) -> int:
+def worker(kernel: str, spec: str, shapes: list[str]) -> int:
     import torch
     root, sets, flush = parse(spec)[1:]
     sys.path.insert(0, str(root / "src"))
     here = load(ROOT / "chip_smoke.py", "chip_smoke_timer")
     theirs = load(root / "chip_smoke.py", "chip_smoke_under_test")
-    from repro_torch.kernels import moe_dispatch
+    mod = importlib.import_module(f"repro_torch.kernels.{MODULE[kernel]}")
     for name, value in sets.items():
-        if not hasattr(moe_dispatch, name):
-            raise SystemExit(f"{root}: moe_dispatch has no {name}")
-        setattr(moe_dispatch, name, value)
+        if not hasattr(mod, name):
+            raise SystemExit(f"{root}: {MODULE[kernel]} has no {name}")
+        setattr(mod, name, value)
     device = torch.device("cuda")
     timer = here.Timer(torch, device)
     if flush == "read":
         timer.flush = ReadFlush(timer.flush)
+    if kernel == "wkv6":
+        wkv_inputs = theirs.wkv_inputs     # phase_wkv6's shape comes from it
     rows = []
-    for name, kw in SHAPES:
+    for name, kw in SHAPES[kernel]:
         if shapes and name not in shapes:
             continue
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            rows += theirs.phase_moe(torch, timer, device, f"{name}-{tag}",
-                                     dt, **kw)
+            if kernel == "moe":
+                rows += theirs.phase_moe(torch, timer, device,
+                                         f"{name}-{tag}", dt, **kw)
+            else:
+                theirs.wkv_inputs = functools.partial(wkv_inputs, **kw)
+                rows.append(theirs.phase_wkv6(torch, timer, device,
+                                              f"wkv6-{name}-{tag}", dt))
     print("RESULT " + json.dumps(rows), flush=True)
     return 1 if theirs.failures else 0
 
@@ -115,25 +142,28 @@ def parse(spec: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel", choices=sorted(SHAPES), default="moe")
     ap.add_argument("--run", action="append", default=[])
     ap.add_argument("--rounds", type=int, default=1)
-    ap.add_argument("--out", default="chiprun_out/moe_ab.json")
+    ap.add_argument("--out", help="default chiprun_out/<kernel>_ab.json")
     ap.add_argument("--shapes", default="",
-                    help="comma-separated names of SHAPES (default: all)")
+                    help="comma-separated names of the kernel's SHAPES "
+                         "(default: all)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    names = [name for name, _ in SHAPES[args.kernel]]
     shapes = [s for s in args.shapes.split(",") if s]
-    if not set(shapes) <= {name for name, _ in SHAPES}:
-        ap.error(f"--shapes: one of {[name for name, _ in SHAPES]}")
+    if not set(shapes) <= set(names):
+        ap.error(f"--shapes: one of {names}")
     if args.worker:
-        return worker(args.worker, shapes)
+        return worker(args.kernel, args.worker, shapes)
     if not args.run:
         ap.error("give at least one --run")
     order = (args.run + args.run[::-1]) * args.rounds
     results, rc = [], 0
     for spec in order:
-        p = subprocess.run([sys.executable, __file__, "--worker", spec,
-                            "--shapes", args.shapes],
+        p = subprocess.run([sys.executable, __file__, "--kernel", args.kernel,
+                            "--worker", spec, "--shapes", args.shapes],
                            capture_output=True, text=True, cwd=ROOT)
         rows = [json.loads(line[7:]) for line in p.stdout.splitlines()
                 if line.startswith("RESULT ")]
@@ -159,7 +189,7 @@ def main() -> int:
     for s in summary.values():
         s["mean_kernel_ms"] = sum(s["kernel_ms"]) / len(s["kernel_ms"])
         print("AB " + json.dumps(s), flush=True)
-    out = ROOT / args.out
+    out = ROOT / (args.out or f"chiprun_out/{args.kernel}_ab.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"runs": order, "phases": results,
                                "summary": list(summary.values())},
