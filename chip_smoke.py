@@ -26,7 +26,8 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    decode, chunk and prefill (S 700); the selective scan f32 / bf16 at
    the chunk shape (1, 256, 16384, N 16) and
    the decode shape (8, 1, 16384) with a carried state, a stall prefill
-   (1, 675) with a state, the stateless forward (1, 512), N 8; rows with
+   (1, 675) with a state, the stateless forward (1, 512), N 8, each
+   beside its time before the Hopper redesign; rows with
    dt = 0 keep their state bitwise; flash f32 / bf16 at a long prompt
    with jamba's heads, q (1, 64, 4096, 128) against 4096 keys, beside
    SDPA); and at the
@@ -38,8 +39,8 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    MoE scatter, ``F.embedding_bag`` (mode "sum", the gates as per-sample
    weights) for the MoE gather.  Before the kernels, the launch floor:
    the time of one near-empty kernel (``torch.cuda._sleep(0)``) under the
-   same timer, what a decode-shape kernel cannot go below; the MoE and
-   WKV6 phases also give the kernel's own device duration from the
+   same timer, what a decode-shape kernel cannot go below; the MoE, WKV6
+   and scan phases also give the kernel's own device duration from the
    profiler (``kernel_device_ms``, no launch).  Then the gradients of the kernels'
    autograd Functions (forward the kernel, backward the plain version's
    gradient) against the plain versions' own autograd.
@@ -71,7 +72,7 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    cache requested in (a) and off (a recurrent stack); then its
    ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Each
    full-width run is profiled once more for the device's busy share, its
-   top kernels and the MoE kernels' share of its device time.
+   top kernels and the MoE and scan kernels' share of its device time.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
    batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
    with the train command's settings.  Launch counts are reset before and
@@ -126,8 +127,8 @@ REF_LOGIT_TOL = {"a": 1e-4, "b": 1e-4, "c": 5e-3}
 # one bf16 rounding of the output in bfloat16)
 WKV_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the selective scan: float32 y and final state within 1e-5 of their
-# largest value (sums in another order, expf against torch.exp over
-# hundreds of steps); bfloat16 y within 1e-2 of its largest (one bf16
+# largest value (sums in another order, the SFU's 2^x against torch.exp
+# over hundreds of steps); bfloat16 y within 1e-2 of its largest (one bf16
 # rounding of the output; the state stays float32, held at 1e-5)
 SCAN_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # the SFUs make 16 exponentials a clock on each of the 132 SMs, at the
@@ -189,8 +190,18 @@ MOE_BEFORE_MS = {
 # kernel's tree timed by tools/moe_ab.py --kernel wkv6 on this timer, the
 # mean of its two readings at the train shape
 WKV_BEFORE_MS = {"wkv6-f32": 0.1641, "wkv6-bf16": 0.1896}
+# the selective-scan kernel's times before its Hopper redesign (ms, same
+# phases and shapes, L2 flushed, on "NVIDIA H100 80GB HBM3, 700.00 W"): the
+# previous kernel's tree timed by tools/moe_ab.py --kernel scan on this
+# timer, the mean of its two readings (A B B A)
+SCAN_BEFORE_MS = {
+    "mamba-chunk-f32": 0.0810, "mamba-chunk-bf16": 0.0836,
+    "mamba-decode-f32": 0.0210, "mamba-decode-bf16": 0.0231,
+    "mamba-prefill-f32": 0.2018, "mamba-prefill-bf16": 0.2081,
+    "mamba-forward-f32": 0.1539, "mamba-forward-bf16": 0.1586,
+    "mamba-n8-f32": 0.0806, "mamba-n8-bf16": 0.0830}
 # device time of these kernels is read out of each serve profile by name
-PROFILE_WATCH = ("moe_scatter", "moe_gather")
+PROFILE_WATCH = ("moe_scatter", "moe_gather", "mamba_scan")
 # the train command's optimizer and step settings (launch/train.py)
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
 TRAIN_CFG = {"q_chunk": 256, "time_chunk": 32, "remat": True}
@@ -668,7 +679,9 @@ def mamba_inputs(torch, device, dtype, *, B, S, di=16384, N=16, state=True):
 def phase_mamba(torch, timer, device, name, dtype, *, B, S, di=16384, N=16,
                 state=True):
     """The scan kernel against its plain version at one of jamba's shapes:
-    y, and the final state when a state is carried."""
+    y, and the final state when a state is carried; its time beside the
+    kernel's before the Hopper redesign (``SCAN_BEFORE_MS``) and its device
+    time alone."""
     from repro_torch.kernels import ops, ref
     dt_, Bm, Cm, x, A, D, h0 = mamba_inputs(torch, device, dtype, B=B, S=S,
                                             di=di, N=N, state=state)
@@ -704,10 +717,14 @@ def phase_mamba(torch, timer, device, name, dtype, *, B, S, di=16384, N=16,
                                                      **kw), iters=20),
            "kernel_call_ms": timer(lambda: ops.mamba_scan(
                dt_, Bm, Cm, x, A, D, **kw), iters=20, host=True),
+           "kernel_device_ms": kernel_device_ms(
+               torch, timer, lambda: ops.mamba_scan(dt_, Bm, Cm, x, A, D,
+                                                    **kw), "mamba_scan"),
            "plain_ms": timer(lambda: ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D,
                                                         **kw),
                              iters=3, warm=1),
            "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+           "before_ms": SCAN_BEFORE_MS.get(name),
            "bytes": bytes_, "flops": flops, "exps": exps}
     emit(res)
     if not ok:
@@ -1798,7 +1815,8 @@ def main() -> int:
                   "decode_attention": "decode-olmoe-bf16",
                   "moe_scatter": "moe-scatter-decode-bf16",
                   "moe_gather": "moe-gather-decode-bf16",
-                  "wkv6": "wkv6-bf16"}
+                  "wkv6": "wkv6-bf16",
+                  "mamba_scan": "mamba-chunk-bf16"}
     for name, phase, source, replaces in rows:
         k = kern.get(phase, {})
         by_path = {path: c[name] for path, c in counts.items()

@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the kernels: 16-byte cp.async,
-// mbarriers, TMA bulk and tile loads and the wgmma fences.
+// the SFU's 2^x, mbarriers, TMA bulk and tile loads and the wgmma fences.
 // Plain inline PTX, no library; every helper is a single instruction or
 // a short poll loop.
 
@@ -30,6 +30,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- 2^x on the SFU (one MUFU.EX2): exactly 1 at +-0; a subnormal input
+// or result flushes to 0 ------------------------------------------------- //
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- mbarrier ----------------------------------------------------------- //

@@ -7,8 +7,10 @@ contiguous, any batch and time strides, so the model's split views go in
 without a copy), A ``(di, N)`` and D ``(di,)`` in float32, N up to 16 and
 any S (the TPU kernel's ``S % chunk`` rule does not apply).  It takes the
 whole contract of the op: an optional float32 initial state ``(B, di, N)``
-in, and the final state out when ``return_state``.  Its plain version is
-:func:`repro_torch.kernels.ref.mamba_scan_ref`.
+in, and the final state out when ``return_state``.  Inputs that are whole
+16-byte units (:func:`vector_path`) are staged by 16-byte copies, others
+(a split view at an odd column) by the kernel's scalar loads.  Its plain
+version is :func:`repro_torch.kernels.ref.mamba_scan_ref`.
 
 Like the reference's ``with_reference_vjp``, the kernel is forward-only:
 :class:`MambaScan` runs it forward and, in the backward pass,
@@ -34,7 +36,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 def _lib():
     fn = build.load("mamba_scan").mamba_scan_forward
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 9 + [_I] * 5 + [_L] * 8 + [_P]
+        fn.argtypes = [_P] * 9 + [_I] * 6 + [_L] * 8 + [_P]
         fn.restype = _I
     return fn
 
@@ -58,6 +60,22 @@ def supports(x_shape, state_size: int) -> bool:
     grid), state size 1 .. MAX_N."""
     B, S, di = x_shape
     return 0 < state_size <= MAX_N and min(B, S, di) > 0 and B <= 65535
+
+
+def vector_path(dt, Bm, Cm, x, A, initial_state=None) -> bool:
+    """Whether the kernel moves its inputs as 16-byte units (``cp.async``
+    tiles, 4-vectors of state): the addresses of dt, Bm, Cm, x, A and the
+    initial state, the strides of dt, Bm, Cm and x along each axis longer
+    than 1, and the rows of x (di values) and Bm (N) all whole 16-byte
+    units.  Otherwise it takes scalar loads, as a split view at an odd
+    column needs."""
+    el = x.element_size()
+    seq = (dt, Bm, Cm, x)
+    ptrs = (*seq, A) + (() if initial_state is None else (initial_state,))
+    return (all(t.data_ptr() % 16 == 0 for t in ptrs)
+            and all(t.stride(i) * el % 16 == 0 for t in seq for i in (0, 1)
+                    if t.shape[i] > 1)
+            and x.shape[-1] * el % 16 == 0 and Bm.shape[-1] * el % 16 == 0)
 
 
 def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
@@ -99,6 +117,7 @@ def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
     err = _lib()(dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), x.data_ptr(),
                  A.data_ptr(), D.data_ptr(), ptr(initial_state),
                  ptr(hN), y.data_ptr(), B, S, di, N, _DTYPE[x.dtype],
+                 int(vector_path(dt, Bm, Cm, x, A, initial_state)),
                  dt.stride(0), dt.stride(1), Bm.stride(0), Bm.stride(1),
                  Cm.stride(0), Cm.stride(1), x.stride(0), x.stride(1),
                  stream)

@@ -17,7 +17,7 @@ The MoE scatter is a copy (exact); the MoE op's output runs the expert
 FFN through cuBLAS on the card and on the CPU in the plain op, so it is
 held at 2e-5 of its largest value in float32.  The selective scan's y and
 final state are held at 1e-5 of their largest value in float32 (sums in
-another order, ``expf`` against ``torch.exp``); bfloat16 y at 1e-2 (one
+another order, the SFU's 2^x against ``torch.exp``); bfloat16 y at 1e-2 (one
 bf16 rounding of the output), its float32 state at 1e-5; a row whose dt
 is 0 keeps its state bitwise.
 """
@@ -880,10 +880,15 @@ SCAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("state", [False, True], ids=["stateless", "state"])
-@pytest.mark.parametrize("B,S,di,N", [(1, 256, 512, 16), (8, 1, 384, 16),
-                                      (2, 70, 200, 8), (3, 33, 96, 4)])
+@pytest.mark.parametrize("B,S,di,N", [
+    (1, 256, 512, 16), (8, 1, 384, 16), (2, 70, 200, 8), (3, 33, 96, 4),
+    (1, 256, 16384, 16), (1, 32, 256, 16), (1, 33, 256, 16),
+    (1, 2048, 256, 16), (2, 40, 100, 16), (2, 40, 300, 1), (1, 64, 256, 8)])
 def test_cuda_mamba_scan_matches_plain(cuda, dt, state, B, S, di, N):
-    """Chunk, decode, an uneven S and di with N 8, and N 4."""
+    """Chunk, decode, an uneven S and di with N 8, and N 4; jamba's chunk
+    at full width; S one 32-step tile, one tile + 1 and 2048; di not a
+    multiple of a CTA's 64 channels (100 in bfloat16 is not whole 16-byte
+    rows: the scalar path); N 1 and 8."""
     dt_, Bm, Cm, x, A, D, h0 = mamba_case(cuda, B=B, S=S, di=di, N=N,
                                           dtype=dt, state=state)
     before = mamba_scan.launches["mamba_scan"]
@@ -925,6 +930,61 @@ def test_cuda_mamba_scan_strided_inputs_and_idle_rows(cuda):
     torch.testing.assert_close(got, want, atol=tol, rtol=0)
     torch.testing.assert_close(hN, want_h, atol=1e-5 * float(
         want_h.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cuda_mamba_scan_takes_misaligned_views(cuda, dt):
+    """B/C split at a 5-column offset of a (B, S, 5 + 2N) tensor: neither
+    their addresses nor their time stride are whole 16-byte units, so the
+    kernel stages them by scalar loads.  It must match the plain version,
+    keep an idle row's state bitwise, and give what the 16-byte path gives
+    on contiguous copies, bit for bit (the same arithmetic)."""
+    dt_, _, _, x, A, D, h0 = mamba_case(cuda, B=3, S=70, di=256, N=16,
+                                        dtype=dt)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    dbl = torch.randn(3, 70, 5 + 32, generator=g, device=cuda).to(dt)
+    _, Bm, Cm = torch.split(dbl, [5, 16, 16], dim=-1)
+    dt_[1] = 0
+    assert not mamba_scan.vector_path(dt_, Bm, Cm, x, A, h0)
+    got, hN = ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                             return_state=True)
+    Bc, Cc = Bm.contiguous(), Cm.contiguous()
+    assert mamba_scan.vector_path(dt_, Bc, Cc, x, A, h0)
+    vy, vh = ops.mamba_scan(dt_, Bc, Cc, x, A, D, initial_state=h0,
+                            return_state=True)
+    want, want_h = ref.mamba_scan_ref(dt_, Bm, Cm, x, A, D, initial_state=h0,
+                                      return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hN[1], h0[1])
+    assert torch.equal(got, vy) and torch.equal(hN, vh)
+    tol = SCAN_TOL[dt] * float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0)
+    torch.testing.assert_close(hN, want_h, atol=1e-5 * float(
+        want_h.abs().max()), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("S,q", [(50, 37), (64, 32), (256, 1), (2, 1)])
+def test_cuda_mamba_scan_tail_padding_keeps_the_state_bitwise(cuda, dt, S, q):
+    """The mixed step's padding: a row of S steps whose last S - q have
+    dt = 0 gives the final state of its first q steps alone, bit for bit,
+    and the same y on those q steps."""
+    dt_, Bm, Cm, x, A, D, h0 = mamba_case(cuda, B=2, S=S, di=384, N=16,
+                                          dtype=dt)
+    pad = dt_.clone()
+    pad[:, q:] = 0
+    y, hN = ops.mamba_scan(pad, Bm, Cm, x, A, D, initial_state=h0,
+                           return_state=True)
+    first = [t[:, :q].contiguous() for t in (dt_, Bm, Cm, x)]
+    yq, hq = ops.mamba_scan(*first, A, D, initial_state=h0,
+                            return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(hN, hq)
+    assert torch.equal(y[:, :q], yq)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """What the port's ops route where: the ``supports_<op>`` predicates of
 ``repro_torch.kernels.ops`` (pure functions of shapes: what each CUDA
 wrapper takes), and the launchers' refusal, on the card, of a model whose
-shapes the kernels do not take.
+shapes the kernels do not take; and which inputs the selective scan's
+kernel moves as 16-byte units (``mamba_scan.vector_path``).
 
 On the card an op whose shapes its kernel does not take raises (held in
 ``test_torch_cuda.py``); here, on the CPU, every op runs its plain version
@@ -69,6 +70,51 @@ def test_supports_wkv6(shape, want):
     ((65536, 1, 64), 16, False)])
 def test_supports_mamba_scan(shape, N, want):
     assert ops.supports_mamba_scan(shape, N) is want
+
+
+def _scan_views(dtype=torch.float32, *, di=64, N=16, split=0, a_off=0,
+                h_off=0, B=2, S=8):
+    """dt, Bm, Cm, x, A, h0 as the mixer passes them: B/C split views at
+    column ``split`` of one (B, S, split + 2N) tensor (contiguous rows when
+    0); A and h0 at an element offset into a larger buffer."""
+    dt, x = torch.zeros(B, S, di, dtype=dtype), torch.zeros(B, S, di,
+                                                            dtype=dtype)
+    dbl = torch.zeros(B, S, split + 2 * N, dtype=dtype)
+    _, Bm, Cm = torch.split(dbl, [split, N, N], dim=-1)
+    A = torch.zeros(di * N + a_off)[a_off:].view(di, N)
+    h0 = torch.zeros(B * di * N + h_off)[h_off:].view(B, di, N)
+    return dt, Bm, Cm, x, A, h0
+
+
+@pytest.mark.parametrize("views,want", [
+    (dict(), True), (dict(dtype=torch.bfloat16), True),
+    (dict(split=8), True), (dict(split=8, dtype=torch.bfloat16), True),
+    (dict(split=512), True),                      # mamba_mix at jamba's rank
+    (dict(split=5), False), (dict(split=5, dtype=torch.bfloat16), False),
+    (dict(di=100), True), (dict(di=100, dtype=torch.bfloat16), False),
+    (dict(N=5), False), (dict(N=8, dtype=torch.bfloat16), True),
+    (dict(N=4, dtype=torch.bfloat16), False),
+    (dict(a_off=1), False), (dict(h_off=2), False), (dict(a_off=4), True)],
+    ids=lambda v: str(v) if isinstance(v, dict) else "")
+def test_mamba_scan_vector_path_needs_whole_16_byte_units(views, want):
+    """The CUDA kernel stages its tiles by 16-byte copies only where every
+    address, stride and row is whole 16-byte units; a view at an odd column
+    (or rows of N or di that are not) takes its scalar loads."""
+    from repro_torch.kernels import mamba_scan
+    dt, Bm, Cm, x, A, h0 = _scan_views(**views)
+    assert mamba_scan.vector_path(dt, Bm, Cm, x, A, h0) is want
+
+
+def test_mamba_scan_vector_path_ignores_the_stride_of_a_length_1_axis():
+    """A decode step (S 1) never steps along time, so a time stride that is
+    not whole 16-byte units does not send it to the scalar loads; such a
+    batch stride (two rows) does."""
+    from repro_torch.kernels import mamba_scan
+    dt, Bm, Cm, x, A, h0 = _scan_views(S=1)
+    x = x.as_strided(x.shape, (x.stride(0), 3, 1))
+    assert mamba_scan.vector_path(dt, Bm, Cm, x, A, h0)
+    x = x.as_strided(x.shape, (x.stride(0) - 3, 3, 1))
+    assert not mamba_scan.vector_path(dt, Bm, Cm, x, A, h0)
 
 
 def _rand(rng, *shape):

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""A/B timing of the MoE scatter and gather kernels, or of the WKV6
-kernel, of several checkouts of this repository on one GPU, all on one
-timer.
+"""A/B timing of the MoE scatter and gather kernels, of the WKV6 kernel,
+or of the selective-scan kernel, of several checkouts of this repository
+on one GPU, all on one timer.
 
-    python3 tools/moe_ab.py [--kernel moe|wkv6] \\
+    python3 tools/moe_ab.py [--kernel moe|wkv6|scan] \\
         --run LABEL=DIR[,NAME=VALUE...][,flush=read] \\
         [--run ...] [--rounds 1] [--shapes decode,chunk,...] \\
         [--out chiprun_out/moe_ab.json]
@@ -23,8 +23,14 @@ and calls its ``chip_smoke.phase_wkv6`` at rwkv6-1.6b's train shape
 (8, 32, 256, 64), at few (b, h) over a long sequence (1, 32, 2048, 64) and
 at head size 32 (3, 2, 256, 32), float32 and bfloat16, each shape given
 through the checkout's ``chip_smoke.wkv_inputs``.
+``--kernel scan`` builds the checkout's ``csrc/mamba_scan.cu`` and calls
+its ``chip_smoke.phase_mamba`` at jamba-1.5-large's shapes (d_inner
+16384): the serving chunk (1, 256) and decode step (8, 1) with a carried
+state, the longest prompt's prefill (1, 675), the stateless forward
+(1, 512) and the chunk at N 8, float32 and bfloat16.
 ``NAME=VALUE`` sets an integer constant of the checkout's kernel module
-(``repro_torch.kernels.moe_dispatch`` or ``.rwkv6_scan``) first
+(``repro_torch.kernels.moe_dispatch``, ``.rwkv6_scan`` or ``.mamba_scan``)
+first
 (``SCATTER_MAP_MIN=0``).
 ``flush=read`` flushes the L2 with a 96 MB read instead: the lines left
 behind are clean, so a kernel's own traffic does not write them back.
@@ -71,8 +77,18 @@ WKV6_SHAPES = [
     ("long", dict(B=1, H=32, T=2048, N=64)),
     ("n32", dict(B=3, H=2, T=256, N=32)),
 ]
-SHAPES = {"moe": MOE_SHAPES, "wkv6": WKV6_SHAPES}
-MODULE = {"moe": "moe_dispatch", "wkv6": "rwkv6_scan"}
+# (name, phase_mamba's kwargs): jamba's chunk and decode with the cache
+# row's state, the stall prefill of the smoke's longest prompt, the
+# stateless forward, and the chunk at N 8
+SCAN_SHAPES = [
+    ("chunk", dict(B=1, S=256)),
+    ("decode", dict(B=8, S=1)),
+    ("prefill", dict(B=1, S=675)),
+    ("forward", dict(B=1, S=512, state=False)),
+    ("n8", dict(B=1, S=256, N=8)),
+]
+SHAPES = {"moe": MOE_SHAPES, "wkv6": WKV6_SHAPES, "scan": SCAN_SHAPES}
+MODULE = {"moe": "moe_dispatch", "wkv6": "rwkv6_scan", "scan": "mamba_scan"}
 
 
 def load(path: Path, name: str):
@@ -119,6 +135,10 @@ def worker(kernel: str, spec: str, shapes: list[str]) -> int:
             if kernel == "moe":
                 rows += theirs.phase_moe(torch, timer, device,
                                          f"{name}-{tag}", dt, **kw)
+            elif kernel == "scan":
+                rows.append(theirs.phase_mamba(torch, timer, device,
+                                               f"mamba-{name}-{tag}", dt,
+                                               **kw))
             else:
                 theirs.wkv_inputs = functools.partial(wkv_inputs, **kw)
                 rows.append(theirs.phase_wkv6(torch, timer, device,
