@@ -45,14 +45,16 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    autograd Functions (forward the kernel, backward the plain version's
    gradient) against the plain versions' own autograd.
 3. reference: a small llama served on the card and on the CPU (plain
-   versions) with the same weights; first-token logits must agree.  The
-   same for a small olmoe (head dim 128) and a small jamba (4 layers in
-   its 2-layer Mamba / attention + MoE pattern, N 16) in their three
-   modes, with the experts each token chose compared first: logits are
-   held only for the requests whose routing agreed on both sides.  Then
-   two train steps of a small llama and a small rwkv6 on the card and on
-   the CPU from the same weights and batches: metrics, moments and
-   parameters must agree.
+   versions) with the same weights; first-token logits must agree; the
+   same for a small rwkv6 (head size 64) in its dense modes, where no
+   kernel may launch.  The same for a small olmoe (head dim 128) and a
+   small jamba (4 layers in its 2-layer Mamba / attention + MoE pattern,
+   N 16) in their three modes, with the experts each token chose compared
+   first: logits are held only for the requests whose routing agreed on
+   both sides.  Then two train steps of a small llama, rwkv6, olmoe and
+   jamba on the card and on the CPU from the same weights and batches
+   (the MoE models' step-1 routing must agree first): metrics, moments
+   and parameters must agree.
 4. serve: full-width llama3.2-1b in float32, ServeEngine with 8 slots and
    max_len 1024, 12 seeded requests (prompts 60-700 tokens, half behind a
    shared 256-token prefix, 32 new tokens each), in four modes:
@@ -70,18 +72,28 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    11.9 B parameters) in float32 in the same three modes, each launching
    the scan, the MoE kernels and its attention kernels, with the prefix
    cache requested in (a) and off (a recurrent stack); then its
-   ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Each
-   full-width run is profiled once more for the device's busy share, its
-   top kernels and the MoE and scan kernels' share of its device time.
-5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b in float32,
-   batch 8 x 256 tokens, 4 AdamW steps each through ``make_train_step``
-   with the train command's settings.  Launch counts are reset before and
-   read after the 4 steps; each run must launch its kernel on every step
-   (flash >= 16, WKV6 >= 24), give finite losses and a finite, nonzero
-   gradient to every parameter leaf at step 1 (read from the first AdamW
+   ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Then
+   full-width, full-depth rwkv6-1.6b in float32: (b) dense, chunked and
+   (c) dense, stall-the-world (first-token logits within 2e-3 of each
+   other), (b) in bfloat16, and (a)'s paged + prefix + int8 request,
+   which a stack without attention serves dense without either; its
+   carried-state WKV6 runs the plain version, so every run must launch
+   no WKV6 kernel.  Each full-width run is profiled once more for the
+   device's busy share, its top kernels and the MoE and scan kernels'
+   share of its device time (rwkv6's (b) alone: the plain WKV6's share
+   of device and wall time).
+5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b, and
+   olmoe-1b-7b at full width cut to ``OLMOE_TRAIN_DEPTH`` layers, in
+   float32, batch 8 x 256 tokens, 4 AdamW steps each through
+   ``make_train_step`` with the train command's settings.  Launch counts
+   are reset before and read after the 4 steps; each run must launch each
+   of its kernels exactly as often as the code says (``train_launches``),
+   give finite losses and a finite, nonzero gradient to every parameter
+   leaf (each expert of an MoE leaf) at step 1 (read from the first AdamW
    moment).  Step time, tok/s, peak memory and the device's busy share of
    one profiled step.  Then the train command itself on the card, at the
-   published width and depth 2.
+   published width and depth 2, for the three.  Then llama3.2-1b, 2 steps
+   under each remat policy: peak memory and step time, gradients equal.
 6. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +102,7 @@ Everything measured is also written to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -202,9 +215,17 @@ SCAN_BEFORE_MS = {
     "mamba-n8-f32": 0.0806, "mamba-n8-bf16": 0.0830}
 # device time of these kernels is read out of each serve profile by name
 PROFILE_WATCH = ("moe_scatter", "moe_gather", "mamba_scan")
+# the card's gradients under the three remat policies: the same arithmetic
+# (cuBLAS picks one algorithm a shape), so the step-1 first moments agree
+# within the train tolerance's moment term, the metrics within its metric
+# term
+REMAT_POLICIES = ("nothing", "dots", "dots_batch")
 # the train command's optimizer and step settings (launch/train.py)
 TRAIN_OPT = {"lr": 3e-3, "warmup_steps": 20}
 TRAIN_CFG = {"q_chunk": 256, "time_chunk": 32, "remat": True}
+# olmoe-1b-7b's train run keeps this many of its 16 layers (see
+# olmoe_train_arch)
+OLMOE_TRAIN_DEPTH = 8
 
 failures: list[str] = []
 record: dict = {"phases": []}
@@ -915,12 +936,19 @@ OLMOE_MODES = {"a": {}, "b": {"kv_block_size": 0},
 # jamba's: the same three; in (a) the prefix cache is requested (the
 # ServeConfig default) and must stay off, the stack being recurrent
 JAMBA_MODES = OLMOE_MODES
+# rwkv6's: (a) the paged pool with the prefix cache and int8 KV requested,
+# which a stack without attention takes as the dense layout with neither;
+# (b) dense, chunked; (c) dense, stall-the-world
+RWKV_MODES = {"a": {"kv_quant": "int8"}, "b": {"kv_block_size": 0},
+              "c": {"kv_block_size": 0, "prefill_chunk_tokens": 0}}
 
 
 def serve_once(torch, params, arch, requests, *, mode, dtype, device,
-               max_batch=8, max_len=1024, modes=SERVE_MODES, engine=None):
+               max_batch=8, max_len=1024, modes=SERVE_MODES, engine=None,
+               watch=contextlib.nullcontext):
     """One engine run with the launch counts reset just before it and read
-    just after; returns the measurements and the engine."""
+    just after (the run alone inside the context ``watch()``); returns the
+    measurements and the engine."""
     import numpy as np
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeConfig
@@ -932,7 +960,8 @@ def serve_once(torch, params, arch, requests, *, mode, dtype, device,
         torch.cuda.synchronize()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done = eng.run(requests)
+    with watch():
+        done = eng.run(requests)
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1008,36 +1037,53 @@ def record_routing(log: dict):
 
 
 def phase_reference(torch, device):
-    """A small model (2 layers, d 256, 4 heads over 2 KV heads, hd 64)
-    served on the card and on the CPU with the same weights: the CUDA
-    kernels against the plain versions through the whole engine."""
+    """Two small models served on the card and on the CPU with the same
+    weights: a llama (2 layers, d 256, 4 heads over 2 KV heads, hd 64) in
+    its modes (a)-(c), the CUDA kernels against the plain versions through
+    the whole engine; and an rwkv6 (2 layers, d 256, 4 heads of 64) in its
+    dense modes (b) and (c), where the carried-state WKV6 recurrence runs
+    its plain version on both sides and no kernel may launch."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.models import lm
-    arch = dataclasses.replace(configs.get("llama3.2-1b"), n_layers=2,
-                               d_model=256, n_heads=4, n_kv_heads=2,
-                               d_ff=512, vocab=512, head_dim=64)
-    params = lm.init_lm(arch, torch.float32,
-                        generator=torch.Generator().manual_seed(SEED),
-                        device="cpu")
-    reqs = make_requests(arch.vocab, n=6, gen=8)
-    for mode in ("a", "b", "c"):
-        runs = {}
-        for dev in (device, torch.device("cpu")):
-            p = lm.tree_map(lambda t: t.to(dev), params)
-            _, eng, toks = serve_once(torch, p, arch, reqs, mode=mode,
-                                      dtype=torch.float32, device=dev,
-                                      max_batch=4, max_len=1024)
-            runs[dev.type] = (eng.first_logits, toks)
-        (gl, gt), (cl, ct) = runs["cuda"], runs["cpu"]
-        err = max(float((gl[u] - cl[u]).abs().max()) for u in cl)
-        same = sum(a == b for u in ct for a, b in zip(gt[u], ct[u]))
-        total = sum(len(t) for t in ct.values())
-        emit({"phase": f"reference-{mode}", "first_logits_max_abs_err": err,
-              "tol": REF_LOGIT_TOL[mode], "tokens_equal": same,
-              "tokens": total})
-        if not err <= REF_LOGIT_TOL[mode]:
-            fail(f"reference-{mode}: card vs CPU logits differ by {err}")
+    small = {"llama3.2-1b": (dict(n_layers=2, d_model=256, n_heads=4,
+                                  n_kv_heads=2, d_ff=512, vocab=512,
+                                  head_dim=64), SERVE_MODES, "abc"),
+             "rwkv6-1.6b": (dict(n_layers=2, d_model=256, n_heads=4,
+                                 n_kv_heads=4, d_ff=512, vocab=512),
+                            RWKV_MODES, "bc")}
+    for name, (kw, modes, run) in small.items():
+        arch = dataclasses.replace(configs.get(name), **kw)
+        params = lm.init_lm(arch, torch.float32,
+                            generator=torch.Generator().manual_seed(SEED),
+                            device="cpu")
+        reqs = make_requests(arch.vocab, n=6, gen=8)
+        for mode in run:
+            runs = {}
+            for dev in (device, torch.device("cpu")):
+                p = lm.tree_map(lambda t: t.to(dev), params)
+                res, eng, toks = serve_once(
+                    torch, p, arch, reqs, mode=mode, dtype=torch.float32,
+                    device=dev, max_batch=4, max_len=1024, modes=modes)
+                runs[dev.type] = (eng.first_logits, toks, res["launches"])
+            (gl, gt, launches), (cl, ct, _) = runs["cuda"], runs["cpu"]
+            err = max(float((gl[u] - cl[u]).abs().max()) for u in cl)
+            same = sum(a == b for u in ct for a, b in zip(gt[u], ct[u]))
+            total = sum(len(t) for t in ct.values())
+            llama = name == "llama3.2-1b"
+            tag = ("reference" if llama else "reference-rwkv6") + f"-{mode}"
+            tol = REF_LOGIT_TOL[mode if llama else "a"]
+            emit({"phase": tag, "arch": arch.name,
+                  "first_logits_max_abs_err": err, "tol": tol,
+                  "tokens_equal": same, "tokens": total,
+                  "launches_card": launches})
+            if not err <= tol:
+                fail(f"{tag}: card vs CPU logits differ by {err}")
+            if len(cl) != len(reqs):
+                fail(f"{tag}: {len(cl)} of {len(reqs)} first tokens")
+            if not llama and any(launches.values()):
+                fail(f"{tag}: kernels launched on a path that has none "
+                     f"({launches})")
 
 
 def small_moe_arch(name: str):
@@ -1123,15 +1169,18 @@ def phase_reference_moe(torch, device, name, modes, kernels):
                  f"({launches})")
 
 
-def busy_share(torch, fn):
+def busy_share(torch, fn, bracket=None):
     """Run ``fn`` once under ``torch.profiler`` (device activity only);
-    returns (wall s, device busy s, top kernels, watched kernels).  Busy
-    time is the sum of the device events' durations (kernels, copies,
-    memsets; one stream, so they do not overlap), read from the raw trace:
-    building the profiler's per-operator tables takes minutes for a run of
-    ~10^5 launches.  The watched kernels: device time, count and share of
-    the busy time of the kernels whose names hold each of
-    ``PROFILE_WATCH``."""
+    returns (wall s, device busy s, top kernels, watched kernels, bracketed
+    s).  Busy time is the sum of the device events' durations (kernels,
+    copies, memsets; one stream, so they do not overlap), read from the
+    raw trace: building the profiler's per-operator tables takes minutes
+    for a run of ~10^5 launches.  The watched kernels: device time, count
+    and share of the busy time of the kernels whose names hold each of
+    ``PROFILE_WATCH``.  ``bracket``: part of the name of a marker kernel
+    that ``fn`` launches before and after some of its work; the bracketed
+    time sums the device events between each pair (the markers are left
+    out of every sum), and ``markers`` counts them."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1142,11 +1191,19 @@ def busy_share(torch, fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     by_name = defaultdict(lambda: [0, 0])               # name -> [ns, count]
-    for e in prof.profiler.kineto_results.events():
-        if str(e.device_type()).endswith("CUDA"):
-            row = by_name[e.name()]
-            row[0] += e.duration_ns()
-            row[1] += 1
+    events = sorted((e for e in prof.profiler.kineto_results.events()
+                     if str(e.device_type()).endswith("CUDA")),
+                    key=lambda e: e.start_ns())
+    inside, bracketed, markers = False, 0, 0
+    for e in events:
+        if bracket and bracket in e.name():
+            inside = not inside
+            markers += 1
+            continue
+        row = by_name[e.name()]
+        row[0] += e.duration_ns()
+        row[1] += 1
+        bracketed += e.duration_ns() if inside else 0
     busy = sum(ns for ns, _ in by_name.values()) / 1e9
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     top = [{"name": name[:80], "device_ms": ns / 1e6, "count": n}
@@ -1157,27 +1214,36 @@ def busy_share(torch, fn):
         watched[w] = {"device_ms": ns / 1e6,
                       "count": sum(n for name, (_, n) in rows if w in name),
                       "share": ns / 1e9 / busy if busy else None}
-    return wall, busy, top, watched
+    return wall, busy, top, watched, (bracketed / 1e9, markers)
 
 
 def profile_run(torch, params, arch, requests, mode, modes, wall_s,
-                name, dtype=None):
+                name, dtype=None, watch=contextlib.nullcontext,
+                bracket=None):
     """``mode`` once more under ``torch.profiler``: the device's busy share
     of the run's wall time and the kernels that take the most device time.
     The profiler adds host time of its own, so the busy share it gives is
     a lower bound; ``wall_s`` (the unprofiled run's wall) gives the share
-    of the same device work without it."""
+    of the same device work without it.  ``watch`` and ``bracket`` as in
+    :func:`serve_once` and :func:`busy_share`."""
     from repro_torch.serve import ServeConfig
     eng = recording_engine()(params, arch, ServeConfig(
         max_batch=8, max_len=1024, dtype=dtype or torch.float32,
         **modes[mode]))
     eng.warmup(sorted({len(r.prompt) for r in requests}))
-    wall, busy, top, watched = busy_share(torch, lambda: eng.run(requests))
-    return {"phase": f"profile-{name}", "wall_s": wall,
-            "device_busy_s": busy,
-            "device_busy_share": busy / wall if busy else None,
-            "device_busy_share_unprofiled": busy / wall_s,
-            "top_kernels": top, "watched_kernels": watched}
+
+    def run():
+        with watch():
+            eng.run(requests)
+    wall, busy, top, watched, inside = busy_share(torch, run, bracket)
+    res = {"phase": f"profile-{name}", "wall_s": wall,
+           "device_busy_s": busy,
+           "device_busy_share": busy / wall if busy else None,
+           "device_busy_share_unprofiled": busy / wall_s,
+           "top_kernels": top, "watched_kernels": watched}
+    if bracket is not None:
+        res["bracketed_device_s"], res["bracket_markers"] = inside
+    return res
 
 
 def serve_modes(torch, params, arch, reqs, device, *, name, modes, need,
@@ -1385,6 +1451,130 @@ def phase_serve_jamba(torch, device):
     return counts
 
 
+@contextlib.contextmanager
+def stateful_wkv6_watch(log: dict, marker=None):
+    """Wrap ``ops.wkv6`` so that each carried-state call (the serve path's
+    plain WKV6 recurrence) adds its host seconds to ``log["host_s"]`` and
+    one to ``log["calls"]``.  ``marker`` (a launch of one near-empty
+    kernel) brackets each such call in the device trace (see
+    :func:`busy_share`).  The stateless form passes through untouched."""
+    from repro_torch.kernels import ops
+    real = ops.wkv6
+
+    def wkv6(*a, initial_state=None, return_state=False, **kw):
+        if initial_state is None and not return_state:
+            return real(*a, **kw)
+        if marker:
+            marker()
+        t0 = time.perf_counter()
+        out = real(*a, initial_state=initial_state,
+                   return_state=return_state, **kw)
+        log["host_s"] += time.perf_counter() - t0
+        log["calls"] += 1
+        if marker:
+            marker()
+        return out
+    ops.wkv6 = wkv6
+    try:
+        yield log
+    finally:
+        ops.wkv6 = real
+
+
+def phase_serve_rwkv(torch, device):
+    """Full-width, full-depth rwkv6-1.6b (24 layers, d 2048, 32 heads of
+    64, d_ff 7168, vocab 65536; 1.6 B parameters) in float32, random
+    weights, on the llama phase's requests: (b) dense chunked and (c)
+    dense stall-the-world, (b) once more under the profiler with the
+    plain WKV6's calls bracketed; their first-token logits within
+    ``SERVE_LOGIT_TOL``; (b) in bfloat16 (the WKV state stays float32);
+    then (a)'s request (paged, prefix cache, int8), which the engine must
+    take as the dense layout without int8 or a prefix cache.  Each run is
+    held to finite logits and every request served, and records the plain
+    stateful WKV6's calls and its share of the run's wall time."""
+    from repro_torch import configs
+    from repro_torch.models import lm
+    arch = configs.get("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    print(f"# rwkv6 weights: {n_params / 1e9:.2f} B in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    reqs = make_requests(arch.vocab)
+    # the marker: torch.cuda._sleep launches ATen's spin_kernel
+    marker = lambda: torch.cuda._sleep(0)
+    counts, first = {}, {}
+    bf = None
+    for mode, dtype in (("b", torch.float32), ("c", torch.float32),
+                        ("b", torch.bfloat16), ("a", torch.float32)):
+        if dtype == torch.bfloat16:
+            bf = lm.tree_map(lambda t: t.to(torch.bfloat16), params)
+        tag = f"serve-rwkv6-{mode}" + ("-bf16" if dtype == torch.bfloat16
+                                       else "")
+        log = {"host_s": 0.0, "calls": 0}
+        res, eng, _ = serve_once(
+            torch, bf if dtype == torch.bfloat16 else params, arch, reqs,
+            mode=mode, dtype=dtype, device=device, modes=RWKV_MODES,
+            watch=lambda: stateful_wkv6_watch(log))
+        res.update({"engine": {"paged": eng.paged, "kv_quant": eng.kv_quant,
+                               "prefix_cache": eng.prefix is not None},
+                    "plain_wkv6_calls": log["calls"],
+                    "plain_wkv6_host_s": log["host_s"],
+                    "plain_wkv6_wall_share": log["host_s"] / res["wall_s"]})
+        if dtype == torch.float32 and mode in "bc":
+            first[mode] = eng.first_logits
+        del eng
+        counts[tag] = res["launches"]
+        emit({"phase": tag, "arch": arch.name, "params": n_params,
+              "config": RWKV_MODES[mode], **res})
+        # the carried-state WKV6 runs its plain version, as the
+        # reference's does: no kernel yet (ROADMAP B2, the carried-state
+        # kernel, turns this into a lower bound)
+        if res["launches"]["wkv6"] != 0:
+            fail(f"{tag}: {res['launches']['wkv6']} WKV6 kernel launches "
+                 f"on the carried-state path")
+        if not res["finite"]:
+            fail(f"{tag}: non-finite logits")
+        if res["requests"] != len(reqs):
+            fail(f"{tag}: {res['requests']} of {len(reqs)} served")
+        if res["plain_wkv6_calls"] <= 0:
+            fail(f"{tag}: the stateful WKV6 was never called")
+        if res["engine"] != {"paged": False, "kv_quant": None,
+                             "prefix_cache": False}:
+            fail(f"{tag}: engine {res['engine']} (a stack without "
+                 f"attention serves dense, without int8 or prefix cache)")
+        if dtype == torch.float32 and mode == "b":
+            plog = {"host_s": 0.0, "calls": 0}
+            prof = profile_run(
+                torch, params, arch, reqs, mode, RWKV_MODES, res["wall_s"],
+                f"serve-rwkv6-{mode}",
+                watch=lambda: stateful_wkv6_watch(plog, marker),
+                bracket="spin_kernel")
+            if prof["bracket_markers"] != 2 * plog["calls"]:
+                fail(f"profile-{tag}: {prof['bracket_markers']} markers in "
+                     f"the trace for {plog['calls']} WKV6 calls")
+            prof.update({
+                "plain_wkv6_calls": plog["calls"],
+                "plain_wkv6_device_s": prof["bracketed_device_s"],
+                "plain_wkv6_device_share":
+                    prof["bracketed_device_s"] / prof["device_busy_s"],
+                "plain_wkv6_wall_share": plog["host_s"] / prof["wall_s"]})
+            emit(prof)
+        gc.collect()
+        torch.cuda.empty_cache()
+    err = max(float((first["b"][u] - first["c"][u]).abs().max())
+              for u in first["c"])
+    emit({"phase": "serve-rwkv6-b-vs-c", "first_logits_max_abs_err": err,
+          "tol": SERVE_LOGIT_TOL, "requests_compared": len(first["c"])})
+    if len(first["c"]) != len(reqs) or not err <= SERVE_LOGIT_TOL:
+        fail(f"serve-rwkv6 b vs c: first-token logits differ by {err}")
+    del params, bf
+    return counts
+
+
 # --------------------------------------------------------------------------- #
 # phases 3 and 5: training
 # --------------------------------------------------------------------------- #
@@ -1409,60 +1599,91 @@ def flat(torch, tree):
 
 
 def phase_reference_train(torch, device):
-    """Two train steps of a small llama and a small rwkv6 (head size 64)
-    on the card (kernels forward, plain gradients) and on the CPU (plain
-    versions), from the same weights and batches; the CPU runs once more
-    with the model in float64 to measure float32's own error."""
+    """Two train steps of four small models on the card (kernels forward,
+    plain gradients) and on the CPU (plain versions), from the same
+    weights and batches: a llama, an rwkv6 (head size 64), and the olmoe
+    and jamba of :func:`small_moe_arch`.  The CPU runs the llama and the
+    rwkv6 once more with the model in float64 to measure float32's own
+    error; an MoE model routes in float32 whatever its dtype, so such a
+    run could choose other experts, and the MoE models are held to the
+    tolerances alone.  Their routing is compared first: on a near-tie the
+    card and the CPU may choose different experts, which moves the loss
+    by more than float error, so every expert choice of step 1 (the
+    forward pass and both recomputes) must agree."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.optim import adamw_init
-    small = {"llama3.2-1b": ("flash_attention", dict(
-                 n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
-                 vocab=512, head_dim=64)),
-             "rwkv6-1.6b": ("wkv6", dict(
-                 n_layers=2, d_model=256, n_heads=4, n_kv_heads=4, d_ff=512,
-                 vocab=512))}
+    small = {"llama3.2-1b": (dataclasses.replace(
+                 configs.get("llama3.2-1b"), n_layers=2, d_model=256,
+                 n_heads=4, n_kv_heads=2, d_ff=512, vocab=512, head_dim=64),
+                 ["flash_attention"]),
+             "rwkv6-1.6b": (dataclasses.replace(
+                 configs.get("rwkv6-1.6b"), n_layers=2, d_model=256,
+                 n_heads=4, n_kv_heads=4, d_ff=512, vocab=512), ["wkv6"]),
+             "olmoe": (small_moe_arch("olmoe"),
+                       ["flash_attention", "moe_scatter", "moe_gather"]),
+             "jamba": (small_moe_arch("jamba"),
+                       ["flash_attention", "moe_scatter", "moe_gather",
+                        "mamba_scan"])}
     tol = TRAIN_REF_TOL
     cpu = torch.device("cpu")
-    for name, (kernel, kw) in small.items():
-        arch = dataclasses.replace(configs.get(name), **kw)
+    for name, (arch, kernels) in small.items():
         params = lm.init_lm(arch, torch.float32,
                             generator=torch.Generator().manual_seed(SEED),
                             device="cpu")
         batches = batches_for(arch, 2, 64, 2)
         step = make_step(torch, arch, 2)
+        sides = [("card", device, torch.float32), ("cpu", cpu, torch.float32)]
+        if not arch.n_experts:
+            sides.append(("cpu64", cpu, torch.float64))
         runs = {}
-        for tag, dev, dt in (("card", device, torch.float32),
-                             ("cpu", cpu, torch.float32),
-                             ("cpu64", cpu, torch.float64)):
+        for tag, dev, dt in sides:
             # a copy: the step updates its parameters in place
             p = lm.tree_map(lambda t: t.to(dev, dt, copy=True), params)
             o = adamw_init(p)
-            mets = []
-            ops.reset_launch_counts()
-            for b in batches:
-                p, o, m = step(p, o, {"tokens": torch.as_tensor(b,
-                                                                device=dev)})
-                mets.append({k: float(v) for k, v in m.items()})
+            mets, log = [], {"calls": [], "rows": {}}
+            restore = record_routing(log)
+            try:
+                ops.reset_launch_counts()
+                for b in batches:
+                    p, o, m = step(p, o, {"tokens": torch.as_tensor(
+                        b, device=dev)})
+                    mets.append({k: float(v) for k, v in m.items()})
+                    log.setdefault("step1", len(log["calls"]))
+                launched = ops.launch_counts()
+            finally:
+                restore()
             runs[tag] = (flat(torch, p), flat(torch, o["m"]), mets,
-                         ops.launch_counts()[kernel])
-        (pc, mc, metc, n_card), (pp, mp, metp, _), (_, m64, met64, _) = (
-            runs["card"], runs["cpu"], runs["cpu64"])
-        lr_sum = sum(m["lr"] for m in metp)
+                         {k: launched[k] for k in kernels},
+                         [c for c, _ in log["calls"]], log["step1"])
+        (pc, mc, metc, n_card, rc, cut), (pp, mp, metp, _, rp, _) = (
+            runs["card"], runs["cpu"])
+        _, m64, met64 = runs.get("cpu64", (None, None, None))[:3]
         bad = []
-        for i, (a, b, c) in enumerate(zip(metc, metp, met64)):
+        # tokens whose expert choices differ, call by call
+        flips = [int((a != b).any(-1).sum()) for a, b in zip(rc, rp)]
+        if len(rc) != len(rp):
+            bad.append(f"{len(rc)} routing calls on the card, {len(rp)} on "
+                       f"the CPU")
+        if sum(flips[:cut]):
+            bad.append(f"step 1 routing differs for {sum(flips[:cut])} "
+                       f"token choices")
+        lr_sum = sum(m["lr"] for m in metp)
+        for i, (a, b) in enumerate(zip(metc, metp)):
             for k in b:
-                lim = max(tol["metric"] * (1 + abs(b[k])),
-                          tol["noise"] * abs(b[k] - c[k]))
+                lim = tol["metric"] * (1 + abs(b[k]))
+                if met64 is not None:
+                    lim = max(lim, tol["noise"] * abs(b[k] - met64[i][k]))
                 if not abs(a[k] - b[k]) <= lim:
                     bad.append(f"step {i + 1} {k}: {a[k]} vs {b[k]}")
         worst_m = worst_p = frac_p = 0.0
         for k in mp:
-            scale = max(float(mp[k].abs().max()), 1e-30)
-            lim = max(tol["moment"] * scale,
-                      tol["noise"] * float((mp[k] - m64[k]).abs().max()))
+            lim = tol["moment"] * max(float(mp[k].abs().max()), 1e-30)
+            if m64 is not None:
+                lim = max(lim, tol["noise"]
+                          * float((mp[k] - m64[k]).abs().max()))
             err = float((mc[k] - mp[k]).abs().max())
             worst_m = max(worst_m, err / lim)
             if not err <= lim:
@@ -1473,28 +1694,101 @@ def phase_reference_train(torch, device):
         if worst_p > 2 * lr_sum + tol["param"] or frac_p > tol["param_frac"]:
             bad.append(f"params: max diff {worst_p}, share beyond "
                        f"{tol['param']} {frac_p}")
-        if n_card <= 0:
-            bad.append(f"the card run launched no {kernel}")
-        emit({"phase": f"reference-train-{name}", "steps": 2,
-              "loss_card": [m["loss"] for m in metc],
+        if min(n_card.values()) <= 0:
+            bad.append(f"the card run launched {n_card}")
+        emit({"phase": f"reference-train-{name}", "arch": arch.name,
+              "steps": 2, "loss_card": [m["loss"] for m in metc],
               "loss_cpu": [m["loss"] for m in metp],
+              "routing_calls": len(rc),
+              "routing_tokens_differing": [sum(flips[:cut]),
+                                           sum(flips[cut:])],
               "moment_err_over_limit": worst_m, "param_max_diff": worst_p,
               "param_share_beyond_tol": frac_p, "param_limit": 2 * lr_sum
-              + tol["param"], "launches_card": {kernel: n_card},
-              "tol": tol})
+              + tol["param"], "float64_noise": m64 is not None,
+              "launches_card": n_card, "tol": tol})
         if bad:
             fail(f"reference-train-{name}: " + "; ".join(bad[:5]))
 
 
-def train_full(torch, device, name, kernel, min_per_step, steps=4):
-    """Full-width, full-depth ``name`` in float32: ``steps`` AdamW steps at
-    batch 8 x 256 through ``make_train_step``, launch counts reset just
-    before and read just after; then one more step under the profiler."""
+def train_launches(arch) -> dict:
+    """Kernel launches in one train step of ``arch`` under per-unit remat,
+    derived from the code.  Each kernel runs in the unit's forward pass
+    and in its recompute in the backward pass; a mixer or MoE layer under
+    its own inner checkpoint (WKV6, the scan, the MoE kernels) runs once
+    more when the backward pass reaches it.  The unit's recompute stops
+    after the last op that saved a tensor for the unit's backward pass
+    (checkpoint's early stop): an inner checkpoint at the end of the unit
+    (the last layer's MoE) is past it, and is not run there.  Backward
+    passes run plain versions and launch nothing."""
+    per = {}
+    add = lambda k, n: per.__setitem__(k, per.get(k, 0) + n * arch.n_units)
+    last = len(arch.pattern) - 1
+    for j, spec in enumerate(arch.pattern):
+        kernel = {"attn": "flash_attention", "mamba": "mamba_scan",
+                  "rwkv": "wkv6"}[spec.mixer]
+        add(kernel, 2 if spec.mixer == "attn" else 3)
+        if spec.mixer != "rwkv" and spec.ffn == "moe":
+            add("moe_scatter", 2 if j == last else 3)
+            add("moe_gather", 2 if j == last else 3)
+    return per
+
+
+def routed_experts(torch, arch, calls) -> dict:
+    """{pattern position j: (n_units, E) bool}, the experts that received
+    a token in each unit's MoE layer j, from the routing calls of one
+    forward pass (``record_routing``'s log; unit by unit, layer by layer)."""
+    moe = [j for j, spec in enumerate(arch.pattern)
+           if spec.mixer != "rwkv" and spec.ffn == "moe"]
+    used = {j: torch.zeros(arch.n_units, arch.n_experts, dtype=torch.bool)
+            for j in moe}
+    for i, (idx, _) in enumerate(calls[:arch.n_units * len(moe)]):
+        u, j = divmod(i, len(moe))
+        used[moe[j]][u] = torch.bincount(idx.flatten(),
+                                         minlength=arch.n_experts) > 0
+    return used
+
+
+def dead_leaves(torch, tree, used=None) -> list[str]:
+    """Paths whose entries (first AdamW moments) are not all finite, or
+    are all zero.  An expert weight is checked expert by expert: each
+    unit's expert must have a nonzero moment exactly where ``used`` (see
+    :func:`routed_experts`) says it received a token (every expert
+    without ``used``)."""
+    from repro_torch.models import lm
+    dead = []
+    for path, t in lm.tree_leaves(tree):
+        live = bool(t.abs().amax() > 0)
+        if "moe" in path and path[-1] in ("wi", "wg", "wo"):
+            got = (t.flatten(2).abs().amax(-1) > 0).cpu()
+            want = (used[int(path[1][1:])] if used is not None
+                    else torch.ones_like(got))
+            live = bool((got == want).all())
+        if not (bool(torch.isfinite(t).all()) and live):
+            dead.append("/".join(path))
+    return dead
+
+
+def olmoe_train_arch():
+    """olmoe-1b-7b at its published width (64 experts top 8, d_ff 1024),
+    cut in depth to ``OLMOE_TRAIN_DEPTH`` layers by ``reduced_arch``: at
+    its 16 layers (6.9 B parameters, ~111 GB of f32 weights, gradients
+    and AdamW moments) it does not train on one 80 GB card."""
+    import dataclasses
     from repro_torch import configs
+    from repro_torch.launch.train import reduced_arch
+    return dataclasses.replace(
+        reduced_arch(configs.get("olmoe-1b-7b"), 0, OLMOE_TRAIN_DEPTH, 0),
+        name=f"olmoe-1b-7b-d{OLMOE_TRAIN_DEPTH}")
+
+
+def train_full(torch, device, arch, steps=4):
+    """``arch`` in float32: ``steps`` AdamW steps at batch 8 x 256
+    through ``make_train_step``, launch counts reset just before and read
+    just after, each kernel's held to :func:`train_launches`; then one more
+    step under the profiler."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.optim import adamw_init
-    arch = configs.get(name)
     params = lm.init_lm(arch, torch.float32,
                         generator=torch.Generator(device=device)
                         .manual_seed(SEED), device=device)
@@ -1505,25 +1799,34 @@ def train_full(torch, device, name, kernel, min_per_step, steps=4):
     n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, mets, dead = [], [], []
+    times, mets, dead, used = [], [], [], None
+    log = {"calls": [], "rows": {}}
     ops.reset_launch_counts()
     for s in range(steps):
+        # step 1's expert choices, to tell an expert that no token chose
+        # from one whose gradient went missing
+        restore = record_routing(log) if s == 0 else (lambda: None)
         t0 = time.perf_counter()
-        params, opt, m = step(params, opt, {"tokens": batches[s]})
-        torch.cuda.synchronize()
+        try:
+            params, opt, m = step(params, opt, {"tokens": batches[s]})
+            torch.cuda.synchronize()
+        finally:
+            restore()
         times.append(time.perf_counter() - t0)
         mets.append({k: float(v) for k, v in m.items()})
         if s == 0:      # the first moment is 0.1 x the clipped gradient
-            dead = [k for k, t in flat(torch, opt["m"]).items()
-                    if not (bool(torch.isfinite(t).all())
-                            and float(t.abs().max()) > 0)]
+            if arch.n_experts:
+                used = routed_experts(torch, arch, log["calls"])
+            dead = dead_leaves(torch, opt["m"], used)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    wall, busy, top, _ = busy_share(
+    want = {k: n * steps for k, n in train_launches(arch).items()}
+    wall, busy, top, _, _ = busy_share(
         torch, lambda: step(params, opt, {"tokens": batches[steps]}))
     step_s = sum(times[1:]) / len(times[1:])
     tokens = batches[0].numel()
-    res = {"phase": f"train-{name}", "params": n_params,
+    res = {"phase": f"train-{arch.name}", "params": n_params,
+           "layers": arch.n_layers,
            "batch": list(batches[0].shape), "steps": steps,
            "step_ms": [t * 1e3 for t in times],
            "step_ms_after_first": step_s * 1e3, "tok_s": tokens / step_s,
@@ -1531,37 +1834,142 @@ def train_full(torch, device, name, kernel, min_per_step, steps=4):
            "nll": [m["nll"] for m in mets],
            "grad_norm": [m["grad_norm"] for m in mets],
            "max_memory_allocated_gb": peak / 1e9,
-           "launches": counts,
+           "launches": counts, "launches_expected": want,
            "launches_per_step": {k: v / steps for k, v in counts.items()},
            "profiled_step_wall_s": wall, "profiled_step_device_busy_s": busy,
            "device_busy_share": busy / wall,
            "device_busy_share_unprofiled": busy / step_s,
            "top_kernels": top, "leaves_without_gradient": dead}
+    if used is not None:
+        res["experts_without_tokens_by_unit"] = {
+            f"l{j}": (~u).sum(-1).tolist() for j, u in used.items()}
     emit(res)
     if not all(math.isfinite(x) for x in res["loss"] + res["grad_norm"]):
-        fail(f"train-{name}: non-finite loss or gradient norm")
+        fail(f"train-{arch.name}: non-finite loss or gradient norm")
     if dead:
-        fail(f"train-{name}: no finite nonzero gradient at step 1 for "
-             f"{dead}")
-    if counts[kernel] < min_per_step * steps:
-        fail(f"train-{name}: {counts[kernel]} launches of {kernel} in "
-             f"{steps} steps (want >= {min_per_step} per step)")
+        fail(f"train-{arch.name}: no finite nonzero gradient at step 1 "
+             f"for {dead} (an expert: where a token chose it, or a "
+             f"gradient where none did)")
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"train-{arch.name}: launches {counts} in {steps} steps "
+             f"(want {want})")
     del params, opt
+    gc.collect()
     torch.cuda.empty_cache()
     return counts
 
 
+def phase_remat(torch, device):
+    """Full-width llama3.2-1b, 2 AdamW steps at batch 8 x 256 under each
+    remat policy from the same weights ("nothing" again last, to tell what
+    a policy costs from what a run's place in the process does): peak
+    memory and step time of each, then one gradient pass alone for the
+    memory the policy keeps.
+    The policies decide what the backward pass keeps, never the result:
+    the step-1 first moments (0.1 x the clipped gradient) and the metrics
+    must agree with ``"nothing"``'s within the train tolerance.  The CUDA
+    kernels are called outside the dispatcher, where no policy sees them,
+    so flash is recomputed (launched twice a layer) under every policy."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    arch = configs.get("llama3.2-1b")
+    batches = [torch.as_tensor(b, device=device)
+               for b in batches_for(arch, 8, 256, 2)]
+    want = {k: 2 * n for k, n in train_launches(arch).items()}
+    counts, base = {}, None
+    for i, policy in enumerate(REMAT_POLICIES + ("nothing",)):
+        params = lm.init_lm(arch, torch.float32,
+                            generator=torch.Generator(device=device)
+                            .manual_seed(SEED), device=device)
+        opt = adamw_init(params)
+        step = make_train_step(arch, None, TrainConfig(
+            optimizer=AdamWConfig(total_steps=100, **TRAIN_OPT),
+            remat_policy=policy, **TRAIN_CFG))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        times, mets = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, {"tokens": b})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: float(v) for k, v in m.items()})
+            if len(mets) == 1:      # on the host: outside the peak
+                m1 = [t.cpu() for _, t in lm.tree_leaves(opt["m"])]
+        tag = f"train-remat-{policy}" + ("-again" if i == len(
+            REMAT_POLICIES) else "")
+        counts[tag] = ops.launch_counts()
+        res = {"phase": tag, "arch": arch.name, "batch": [8, 256],
+               "step_ms": [t * 1e3 for t in times],
+               "max_memory_allocated_gb":
+                   torch.cuda.max_memory_allocated() / 1e9,
+               "loss": [m["loss"] for m in mets], "launches": counts[tag]}
+        # the step's peak is AdamW's; one gradient pass alone shows what
+        # the policy keeps: memory allocated before it, at the end of its
+        # forward pass (what is saved for the backward) and at its peak
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = sum(t.numel() * t.element_size() for tree in
+                    (params, opt["m"], opt["v"]) for _, t in
+                    lm.tree_leaves(tree))
+        res["grad_pass_gb"] = {"before": torch.cuda.memory_allocated() / 1e9,
+                               "train_state": state / 1e9}
+        tree = lm.tree_map(lambda t: t.detach().requires_grad_(), params)
+        # the loss alone: its metrics hold the graph, which holds the
+        # parameters, past this run
+        loss = lm.loss_fn(tree, {"tokens": batches[0]}, arch,
+                          q_chunk=TRAIN_CFG["q_chunk"],
+                          time_chunk=TRAIN_CFG["time_chunk"],
+                          remat_policy=policy)[0]
+        torch.cuda.synchronize()
+        res["grad_pass_gb"]["after_forward"] = (torch.cuda.memory_allocated()
+                                                / 1e9)
+        grads = torch.autograd.grad(loss, [t for _, t in
+                                           lm.tree_leaves(tree)])
+        torch.cuda.synchronize()
+        res["grad_pass_gb"]["peak"] = torch.cuda.max_memory_allocated() / 1e9
+        del tree, loss, grads, params, opt
+        if base is None:
+            base = (m1, mets)
+        else:
+            worst = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(m1, base[0]))
+            metric = max(abs(a[k] - b[k]) / (1 + abs(b[k]))
+                         for a, b in zip(mets, base[1]) for k in b)
+            res.update({"moment_rel_err_vs_nothing": worst,
+                        "metric_rel_err_vs_nothing": metric})
+            if not (worst <= TRAIN_REF_TOL["moment"]
+                    and metric <= TRAIN_REF_TOL["metric"]):
+                fail(f"{tag}: gradients differ from 'nothing' (moment "
+                     f"{worst}, metric {metric})")
+        del m1
+        emit(res)
+        if any(counts[tag][k] != n for k, n in want.items()):
+            fail(f"{tag}: launches {counts[tag]} (want {want})")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def phase_train(torch, device):
-    counts = {"train-llama3.2-1b": train_full(
-                  torch, device, "llama3.2-1b", "flash_attention", 16),
-              "train-rwkv6-1.6b": train_full(torch, device, "rwkv6-1.6b",
-                                             "wkv6", 24)}
+    from repro_torch import configs
+    counts = {}
+    for arch in (configs.get("llama3.2-1b"), configs.get("rwkv6-1.6b"),
+                 olmoe_train_arch()):
+        counts[f"train-{arch.name}"] = train_full(torch, device, arch)
     from repro_torch.launch import train
-    for name in ("llama3.2-1b", "rwkv6-1.6b"):
+    for name, width in (("llama3.2-1b", "2048"), ("rwkv6-1.6b", "2048"),
+                        ("olmoe-1b-7b", "0")):
         t0 = time.perf_counter()
-        # the published width (head size 64, which the kernels take) at
-        # depth 2
-        hist = train.main(["--arch", name, "--width", "2048", "--depth",
+        # the published width (head dims the kernels take; olmoe's 64
+        # experts of d_ff 1024) at depth 2
+        hist = train.main(["--arch", name, "--width", width, "--depth",
                            "2", "--vocab", "512", "--steps", "3", "--batch",
                            "4", "--seq", "64", "--ckpt-every", "0",
                            "--log-every", "1"])
@@ -1571,6 +1979,7 @@ def phase_train(torch, device):
               time.perf_counter() - t0, "loss": [h["loss"] for h in hist]})
         if not ok:
             fail(f"train-cli-{name}: {hist}")
+    counts.update(phase_remat(torch, device))
     return counts
 
 
@@ -1759,6 +2168,7 @@ def main() -> int:
         ("serve", lambda: phase_serve(torch, device)),
         ("serve-olmoe", lambda: phase_serve_olmoe(torch, device)),
         ("serve-jamba", lambda: phase_serve_jamba(torch, device)),
+        ("serve-rwkv6", lambda: phase_serve_rwkv(torch, device)),
         ("train", lambda: phase_train(torch, device)),
     ]
     counts, seconds = {}, {}
@@ -1777,7 +2187,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
-        if name in ("serve", "serve-olmoe", "serve-jamba", "train"):
+        if name in ("serve", "serve-olmoe", "serve-jamba", "serve-rwkv6",
+                    "train"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)

@@ -8,6 +8,8 @@
         --width 0 --depth 0 --vocab 0 --experts 0 --kv-block-size 0
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \
         --width 0 --depth 2 --vocab 0 --experts 0
+    python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --width 0 --depth 0 --vocab 0
 
 ``--width/--depth/--vocab/--experts`` shrink the config (0 keeps the
 published value).  The defaults keep the published width, at which the
@@ -18,7 +20,10 @@ A ``--depth`` below the layer pattern's period takes the pattern of the
 config's ``reduced()`` (jamba's: a Mamba layer with a dense FFN, then an
 attention layer with MoE), so that ``--depth 2`` keeps every layer kind
 of the model at its published width on one card.
-``--kv-block-size 0`` serves from dense per-slot KV rows.  Weights are random,
+``--kv-block-size 0`` serves from dense per-slot KV rows; a stack
+without attention (rwkv6) always does, and ``--kv-quant`` is inert there.
+Its carried-state WKV6 recurrence runs the plain version on the card too,
+as the reference's does.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
 a numpy generator with the same seed.  ``--device cpu`` runs the plain
 PyTorch versions on the CPU; without it the command needs a GPU.

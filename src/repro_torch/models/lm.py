@@ -24,14 +24,21 @@ Entry points:
 ``plan`` (a searched ``ModelPlan`` in the reference) only places
 tensors across devices; on one device it changes no arithmetic, and the
 port accepts it for signature parity.  Modality frontends raise
-``NotImplementedError`` naming the slice that brings them; so does
-serving an RWKV6 model.
+``NotImplementedError`` naming the slice that brings them.
+
+Training rematerializes each unit (``remat``) under one of the
+reference's policies (:data:`REMAT_POLICIES`): recompute everything
+(``"nothing"``), or keep the outputs of the matrix products without a
+batch dimension (``"dots"``) or of every matrix product
+(``"dots_batch"``).
 """
 
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from repro_torch.device import resolve_device
 
@@ -48,17 +55,6 @@ def check_arch(arch: ArchConfig) -> None:
         raise NotImplementedError(
             f"{arch.name}: frontends and encoder-decoder models arrive "
             f"with the VLM / encoder-decoder slice (ROADMAP.md)")
-
-
-def check_servable(arch: ArchConfig) -> None:
-    """Raise for anything the serve path does not take: beyond
-    :func:`check_arch`, RWKV6 models (their carried-state caches)."""
-    check_arch(arch)
-    if any(spec.mixer == "rwkv" for spec in arch.pattern):
-        raise NotImplementedError(
-            f"{arch.name}: serving RWKV6 models (recurrent-state caches) "
-            f"arrives with the RWKV6 serve slice (ROADMAP.md); this port "
-            f"trains them")
 
 
 def tree_map(fn, tree):
@@ -119,6 +115,12 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
 # --------------------------------------------------------------------------- #
 # one pattern unit, and the stack
 # --------------------------------------------------------------------------- #
+def _store(leaves: dict, new: dict) -> None:
+    """Copy each new state into its cache leaf, in the leaf's dtype."""
+    for name, t in new.items():
+        leaves[name].copy_(t)
+
+
 def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
                  causal=True, cache=None, cache_pos=None, block_tables=None,
                  q_lens=None, time_chunk=64):
@@ -131,16 +133,31 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
         lc = cache.get(f"l{j}") if cache is not None else None
         hn = L.apply_norm(lp["ln1"], h)
         if spec.mixer == "rwkv":
-            # the reference's inner remat: during the unit's backward
-            # recompute only one time mix's internals are live at a time
-            h = h + checkpoint(
-                lambda p_, h_: Rc.rwkv_tmix(p_, h_, arch,
-                                            chunk=time_chunk)[0],
-                lp["tmix"], hn, use_reentrant=False,
-                preserve_rng_state=False)
+            if cache is None:
+                # the reference's inner remat: during the unit's backward
+                # recompute only one time mix's internals are live at a time
+                h = h + checkpoint(
+                    lambda p_, h_: Rc.rwkv_tmix(p_, h_, arch,
+                                                chunk=time_chunk)[0],
+                    lp["tmix"], hn, use_reentrant=False,
+                    preserve_rng_state=False)
+                hn = L.apply_norm(lp["ln2"], h)
+                h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch)[0]
+                new_cache[f"l{j}"] = {}
+                continue
+            # the mixers return new states: write them into the cache
+            # leaves, which may be a mixed step's row views
+            y, st = Rc.rwkv_tmix(lp["tmix"], hn, arch,
+                                 state=lc["tmix_state"], chunk=time_chunk,
+                                 q_lens=q_lens)
+            _store(lc["tmix_state"], st)
+            h = h + y
             hn = L.apply_norm(lp["ln2"], h)
-            h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch)[0]
-            new_cache[f"l{j}"] = {}
+            y, st = Rc.rwkv_cmix(lp["cmix"], hn, arch,
+                                 state=lc["cmix_state"], q_lens=q_lens)
+            _store(lc["cmix_state"], st)
+            h = h + y
+            new_cache[f"l{j}"] = lc
             continue
         nc: dict = {}
         if spec.mixer == "mamba":
@@ -183,17 +200,46 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
     return h, aux, new_cache
 
 
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BMM = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+#: the reference's ``REMAT_POLICIES``: the ops whose outputs a unit's
+#: backward keeps; everything else it recomputes.  ``x @ w`` of a (B, S, D)
+#: activation reaches the dispatcher as ``mm`` (JAX's dot with no batch
+#: dimension), an einsum over experts or heads as ``bmm``.  The CUDA
+#: kernels are called through ctypes, not through the dispatcher, so no
+#: policy sees them: their outputs are recomputed under every policy (a
+#: difference in memory, never in results).
+REMAT_POLICIES = {"nothing": (), "dots": _MM, "dots_batch": _MM + _BMM}
+
+
+def remat_context(policy: str):
+    """``context_fn`` for ``torch.utils.checkpoint`` under ``policy``."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; expected one "
+                         f"of {sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[policy]
+    if not saved:
+        return noop_context_fn
+
+    def keep(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in saved
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return lambda: create_selective_checkpoint_contexts(keep)
+
+
 def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
               cache=None, cache_pos=None, block_tables=None, q_lens=None,
-              time_chunk=64, remat=False):
+              time_chunk=64, remat=False, remat_policy="nothing"):
     """Walk the units in order; returns (h, aux_loss, cache).  Unit u's
     parameters and cache are the views ``leaf[u]`` of the stacked trees,
     so cache writes land in the stacked cache itself.
 
     ``remat`` (training, no cache) runs each unit under
-    ``torch.utils.checkpoint``: the backward pass keeps only each unit's
-    input and recomputes the rest, the reference's ``"nothing"`` remat
-    policy."""
+    ``torch.utils.checkpoint``: the backward pass keeps each unit's input
+    and what ``remat_policy`` saves (:data:`REMAT_POLICIES`), and
+    recomputes the rest.  The inner per-mixer checkpoints save nothing,
+    as in the reference."""
+    context_fn = remat_context(remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(arch.n_units):
         unit_params = tree_map(lambda a: a[u], stack_params)
@@ -206,7 +252,7 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
             h, a = checkpoint(
                 lambda h_, p_: unit_forward(h_, p_, arch, **kw)[:2],
                 h, unit_params, use_reentrant=False,
-                preserve_rng_state=False)
+                preserve_rng_state=False, context_fn=context_fn)
         else:
             h, a, _ = unit_forward(h, unit_params, arch, **kw)
         aux = aux + a
@@ -223,16 +269,12 @@ def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
     ``q_chunk`` is accepted for signature parity (the attention kernel
     does not chunk queries)."""
     check_arch(arch)
-    if remat_policy != "nothing":
-        raise NotImplementedError(
-            f"remat policy {remat_policy!r}: the port rematerializes whole "
-            f"units (torch.utils.checkpoint), the reference's 'nothing' "
-            f"policy; the dot-saving policies have no counterpart yet")
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux, _ = run_stack(h, params["stack"], arch, positions=positions,
-                          causal=True, time_chunk=time_chunk, remat=remat)
+                          causal=True, time_chunk=time_chunk, remat=remat,
+                          remat_policy=remat_policy)
     return L.apply_norm(params["final_norm"], h), aux
 
 
@@ -314,29 +356,35 @@ def _head(params, h, arch):
 # --------------------------------------------------------------------------- #
 # serving: cache init / prefill / decode
 # --------------------------------------------------------------------------- #
-def _slot_state(arch: ArchConfig, batch: int, dtype, device) -> dict:
-    """A Mamba layer's slot-dense state leaves ((n_units, batch, ...)), as
-    in the reference: the conv window in the cache dtype, the SSM state in
-    float32."""
-    n, di = arch.n_units, arch.d_inner
-    return {"ssm_state": {
-        "conv": torch.zeros((n, batch, arch.ssm_conv - 1, di), dtype=dtype,
-                            device=device),
-        "ssm": torch.zeros((n, batch, di, arch.ssm_state),
-                           dtype=torch.float32, device=device)}}
+def _slot_state(arch: ArchConfig, spec, batch: int, dtype, device) -> dict:
+    """A recurrent layer's slot-dense state leaves ((n_units, batch, ...)),
+    as in the reference: a Mamba layer's conv window in the cache dtype
+    and SSM state in float32; an RWKV6 layer's token shifts in the cache
+    dtype and WKV state in float32."""
+    n = arch.n_units
+    zeros = lambda *shape, dt=dtype: torch.zeros((n, batch, *shape),
+                                                 dtype=dt, device=device)
+    if spec.mixer == "mamba":
+        return {"ssm_state": {
+            "conv": zeros(arch.ssm_conv - 1, arch.d_inner),
+            "ssm": zeros(arch.d_inner, arch.ssm_state, dt=torch.float32)}}
+    H, hs, D = arch.n_rwkv_heads, arch.rwkv_head_size, arch.d_model
+    return {"tmix_state": {"shift": zeros(D),
+                           "wkv": zeros(H, hs, hs, dt=torch.float32)},
+            "cmix_state": {"shift": zeros(D)}}
 
 
 def init_cache(arch: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, *, device=None) -> dict:
     """KV rows ``(n_units, batch, max_len, KH, hd)`` for attention layers,
-    slot-dense state for Mamba layers."""
-    check_servable(arch)
+    slot-dense state for Mamba and RWKV6 layers."""
+    check_arch(arch)
     device = resolve_device(device)
     shape = (arch.n_units, batch, max_len, arch.n_kv_heads, arch.hd)
     cache = {}
     for j, spec in enumerate(arch.pattern):
-        if spec.mixer == "mamba":
-            cache[f"l{j}"] = _slot_state(arch, batch, dtype, device)
+        if spec.mixer != "attn":
+            cache[f"l{j}"] = _slot_state(arch, spec, batch, dtype, device)
         else:
             cache[f"l{j}"] = {"kv": {
                 "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -351,12 +399,12 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
     block_size, KH, hd)`` shared by all slots through a block table.
     ``kv_quant="int8"`` stores the pool as int8 with per-(slot, head)
     f32 scales ``k_scale``/``v_scale`` ``(n_units, NB, block_size, KH)``;
-    zero scales dequantize never-written slots to exactly 0.0.  Mamba
-    state is O(1) in sequence length and stays slot-dense ``(n_units,
-    batch, ...)``, exactly as in :func:`init_cache`."""
+    zero scales dequantize never-written slots to exactly 0.0.  Recurrent
+    (Mamba, RWKV6) state is O(1) in sequence length and stays slot-dense
+    ``(n_units, batch, ...)``, exactly as in :func:`init_cache`."""
     if kv_quant not in (None, "none", "int8"):
         raise ValueError(f"unknown kv_quant {kv_quant!r}")
-    check_servable(arch)
+    check_arch(arch)
     device = resolve_device(device)
     quant = kv_quant == "int8"
     shape = (arch.n_units, num_blocks, block_size, arch.n_kv_heads, arch.hd)
@@ -371,15 +419,15 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
                                            device=device)
         return leaves
 
-    return {f"l{j}": (_slot_state(arch, batch, dtype, device)
-                      if spec.mixer == "mamba" else {"kv": kv_pool()})
+    return {f"l{j}": ({"kv": kv_pool()} if spec.mixer == "attn"
+                      else _slot_state(arch, spec, batch, dtype, device))
             for j, spec in enumerate(arch.pattern)}
 
 
 def prefill(params, batch: dict, cache: dict, arch: ArchConfig):
     """Process the prompt (``batch["tokens"]`` (B, S)), filling ``cache``
     from position 0; returns (last-position logits (B, 1, V), cache)."""
-    check_servable(arch)
+    check_arch(arch)
     tokens = batch["tokens"]
     h = L.embed(params["embed"], tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -407,7 +455,7 @@ def decode_step(params, token, cache: dict, pos, arch: ArchConfig, *,
     """One decode step.  token: (B, 1); pos: scalar or (B,) (see
     :func:`decode_positions`).  With ``block_tables`` the KV leaves are
     the paged pool and ``pos`` must be (B,)."""
-    check_servable(arch)
+    check_arch(arch)
     h = L.embed(params["embed"], token)
     positions, cache_pos = decode_positions(pos, token.shape[0], token.device)
     if block_tables is not None and cache_pos.ndim != 1:
@@ -426,7 +474,7 @@ def step(params, tokens, cache: dict, pos, arch: ArchConfig, *,
     up to T, idle slots 0).  ``q_lens=None`` means every row advances all
     T tokens.  Returns (logits (B, T, V), cache); row b's next-token
     logits sit at ``logits[b, q_lens[b] - 1]``, the rest is garbage."""
-    check_servable(arch)
+    check_arch(arch)
     B, T = tokens.shape
     pos = torch.as_tensor(pos, dtype=torch.int32, device=tokens.device)
     if pos.ndim == 0:

@@ -11,8 +11,9 @@ the head-major ``(B, H, T, N)`` layout: the CUDA kernel for the stateless
 ``w = exp(-exp(w_log))`` and the state stay float32 whatever the
 activation dtype (``w`` compounds over thousands of steps).  The
 carried-state form (``state``, ``q_lens``) is the reference's serving
-form; serving an RWKV model (cache init, prefill, step) arrives with the
-RWKV6 serve slice.
+form; it runs the plain version on every device, as the reference's does
+(the caller, ``lm.unit_forward``, writes the returned state into its
+cache leaves).
 
 The selective scan runs through :func:`repro_torch.kernels.ops.mamba_scan`:
 the CUDA kernel on the card in every form (stateless for training and

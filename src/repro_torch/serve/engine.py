@@ -16,8 +16,10 @@
 * Identical whole prompt blocks are shared between requests through the
   refcounted copy-on-write prefix index (paged, chunked and
   attention-only stacks; requested on a Mamba hybrid it stays off).
-* Recurrent (Mamba) state is slot-dense in both layouts: admission zeroes
-  or overwrites the slot's rows.
+* Recurrent (Mamba, RWKV6) state is slot-dense in both layouts:
+  admission zeroes or overwrites the slot's rows.  A stack without
+  attention (RWKV6) has no KV to page: it takes the dense layout whatever
+  ``kv_block_size`` says, and ``kv_quant`` is inert there.
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
 
@@ -87,8 +89,8 @@ def copy_block(pool: dict, src: int, dst: int) -> dict:
 
 def reset_slot_state(cache: dict, slot: int) -> dict:
     """Chunked-admission hygiene, in place: zero slot ``slot``'s
-    non-KV (recurrent) state leaves, so a new request's Mamba state starts
-    from zero.  KV leaves are left alone: stale KV beyond a request's
+    non-KV (recurrent) state leaves, so a new request's Mamba or RWKV6
+    state starts from zero.  KV leaves are left alone: stale KV beyond a request's
     frontier is masked by ``kv_len``.  (A dense arch has no such leaves;
     the call keeps the reference's admission sequence.)"""
     for path, leaf in lm.tree_leaves(cache):
@@ -116,7 +118,7 @@ class ServeEngine:
     """
 
     def __init__(self, params, arch: ArchConfig, config: ServeConfig):
-        lm.check_servable(arch)
+        lm.check_arch(arch)
         self.params = params
         self.arch = arch
         self.config = config
@@ -124,10 +126,13 @@ class ServeEngine:
         self.max_batch = int(config.max_batch)
         self.max_len = int(config.max_len)
         self.dtype = config.dtype
-        self.block_size = int(config.kv_block_size or 0)
+        # paging applies to KV only: a stack without attention (RWKV6)
+        # serves from the dense slot layout, and int8 KV is inert there
+        has_attn = any(spec.mixer == "attn" for spec in arch.pattern)
+        self.block_size = int(config.kv_block_size or 0) if has_attn else 0
         self.paged = self.block_size > 0
         kvq = config.kv_quant or "none"
-        self.kv_quant = kvq if kvq != "none" else None
+        self.kv_quant = kvq if (self.paged and kvq != "none") else None
         if config.prefill_chunk_tokens is None:
             self.chunk = 2 * self.block_size if self.paged else 256
         else:
@@ -155,7 +160,7 @@ class ServeEngine:
             self.scheduler = SlotScheduler(self.max_batch, config.policy)
         # prefix sharing needs blocks to point at, a chunk that can start
         # at the first uncached token, and a stack whose per-token state is
-        # all in the KV blocks: a recurrent (Mamba) layer's state must
+        # all in the KV blocks: a recurrent layer's state must
         # ingest every prompt token, so it gets no prefix cache
         attn_only = all(spec.mixer == "attn" for spec in arch.pattern)
         use_prefix = (config.prefix_cache and self.paged and self.chunked

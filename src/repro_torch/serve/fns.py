@@ -1,7 +1,7 @@
 """Serving step builders: the counterpart of ``repro.serve.fns``.
 
 ``make_serve_fns`` returns ``(prefill, step)`` over the port's dense,
-MoE and Mamba-hybrid LMs.
+MoE, RWKV6 and Mamba-hybrid LMs.
 There is no jit and no plan: PyTorch runs eagerly on one device, and the
 cache is updated in place where the reference donated it to jit.
 """
@@ -45,7 +45,7 @@ def make_serve_fns(arch: ArchConfig):
     whole chunk budget to one slot, so exactly one row has
     ``q_lens == T`` and ``argmax(q_lens)`` finds it.
     """
-    lm.check_servable(arch)
+    lm.check_arch(arch)
 
     def prefill(params, batch, cache):
         return lm.prefill(params, batch, cache, arch)
@@ -69,7 +69,7 @@ def make_serve_fns(arch: ArchConfig):
         logits, cache = _model_step(params, tokens[:, :1], cache, pos, dec_q,
                                     block_tables)
         # 2. (1, T) chunk pass on row g: a paged pool passes whole with row
-        #    g's table row; every other leaf (dense KV rows, Mamba state)
+        #    g's table row; every other leaf (dense KV rows, recurrent state)
         #    passes as the view leaf[:, g:g+1], so the chunk's writes land
         #    in the cache itself
         g = int(torch.argmax(q_lens))

@@ -103,3 +103,26 @@ def test_jamba_params_and_state_caches_round_trip(dtype):
             a.dtype), jc)
         assert jc["l0"]["ssm_state"]["ssm"].dtype == np.float32
         _assert_same(params_to_numpy(params_from_jax(jc, "cpu")), jc)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_rwkv_state_caches_round_trip(dtype):
+    """The RWKV6 cache leaves (token shifts in the cache dtype, the WKV
+    state float32 whatever it) of both layouts cross both ways bit for
+    bit, and the port's own caches have the reference's tree."""
+    from repro_torch.models import lm
+    arch = C.reduced("rwkv6_1b6")
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    rng = np.random.default_rng(2)
+    for jc, tc in ((jlm.init_cache(arch, 2, 8, dtype),
+                    lm.init_cache(arch, 2, 8, tdt, device="cpu")),
+                   (jlm.init_paged_cache(arch, 5, 4, 2, dtype),
+                    lm.init_paged_cache(arch, 5, 4, 2, tdt, device="cpu"))):
+        jc = jax.tree.map(np.asarray, jc)
+        _assert_same(params_to_numpy(tc), jc)       # zeros, same tree
+        jc = jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+            a.dtype), jc)
+        assert jc["l0"]["tmix_state"]["wkv"].dtype == np.float32
+        assert jc["l0"]["cmix_state"]["shift"].dtype == np.dtype(dtype)
+        _assert_same(params_to_numpy(params_from_jax(jc, "cpu")), jc)

@@ -50,9 +50,14 @@ def test_other_archs_name_their_slice():
     TC.get("olmoe-1b-7b")                    # ported: MoE serving
     with pytest.raises(NotImplementedError, match="multi-GPU plans"):
         TC.get("phi3.5-moe-42b-a6.6b")
-    rwkv = TC.reduced("rwkv6_1b6")           # trained, not yet served
-    with pytest.raises(NotImplementedError, match="RWKV6 serve slice"):
-        lm.init_paged_cache(rwkv, 3, 4, 2, device="cpu")
+    rwkv = TC.reduced("rwkv6_1b6")           # served: slot-dense state
+    got = params_to_numpy(lm.init_paged_cache(rwkv, 3, 4, 2, torch.float32,
+                                              device="cpu"))
+    want = jax.tree.map(np.asarray, jlm.init_paged_cache(
+        C.reduced("rwkv6_1b6"), 3, 4, 2, jnp.float32))
+    assert ({p: (a.shape, a.dtype) for p, a in lm.tree_leaves(got)}
+            == {p: (a.shape, a.dtype) for p, a in lm.tree_leaves(want)})
+    assert "kv" not in got["l0"] and "tmix_state" in got["l0"]
     with pytest.raises(ValueError, match="unknown arch"):
         TC.get("gpt-17")
     jamba = TC.get("jamba-1.5-large-398b")   # ported: Mamba hybrid serving

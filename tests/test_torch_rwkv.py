@@ -2,7 +2,7 @@
 recurrence (plain version against ``repro.kernels.ref`` and against the
 Pallas kernel in interpret mode, values and gradients), the time mix and
 channel mix (training form, and the carried-state form with a ragged
-``q_lens``), and the config copy.
+``q_lens``), the config copy, and the serve cache's leaves.
 
 Tolerances (float32, the same math with sums in another order): 1e-5 on
 outputs; gradients within 1e-4 of the largest gradient entry of the
@@ -190,9 +190,17 @@ def test_rwkv_config_is_a_copy_and_serving_names_its_slice():
             == dataclasses.asdict(C.get("rwkv6_1b6")))
     assert (dataclasses.asdict(TC.reduced("rwkv6_1b6"))
             == dataclasses.asdict(C.reduced("rwkv6_1b6")))
+    # serving arrived with its slice: the cache has the reference's leaves
+    from repro.models import lm as jlm
     from repro_torch.models import lm
     arch = TC.reduced("rwkv6_1b6")
-    with pytest.raises(NotImplementedError, match="RWKV6 serve slice"):
-        lm.init_cache(arch, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="RWKV6 serve slice"):
-        lm.init_paged_cache(arch, 4, 4, 2, device="cpu")
+    got = {p: (tuple(t.shape), t.dtype) for p, t in lm.tree_leaves(
+        lm.init_cache(arch, 2, 8, torch.bfloat16, device="cpu"))}
+    want = {p: (a.shape, torch.float32 if a.dtype == np.float32
+                else torch.bfloat16)
+            for p, a in lm.tree_leaves(jax.tree.map(
+                np.asarray, jlm.init_cache(arch, 2, 8, jnp.bfloat16)))}
+    assert got == want
+    assert {p[1:] for p in got} == {("tmix_state", "shift"),
+                                    ("tmix_state", "wkv"),
+                                    ("cmix_state", "shift")}

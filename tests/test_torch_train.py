@@ -1,9 +1,12 @@
 """The port's train path against the JAX reference on the CPU, for reduced
-llama3.2 and reduced rwkv6 with the reference's weights moved across by
-the bridge: ``loss_fn`` and every gradient leaf, ``make_train_step``
-after 1 and 3 steps (params, AdamW moments, step, metrics), microbatch
-accumulation, the optimizer alone, the synthetic data, checkpoints that
-cross between the packages both ways, and the train command.
+llama3.2, rwkv6, olmoe (MoE) and jamba (Mamba + attention + MoE) with
+the reference's weights moved across by the bridge: ``loss_fn`` and every
+gradient leaf, ``make_train_step`` after 1 and 3 steps (params, AdamW
+moments, step, metrics), microbatch accumulation (against one batch, and
+against the reference's microbatched step where the MoE load-balancing
+loss makes the two differ), the optimizer alone, the synthetic data,
+checkpoints that cross between the packages both ways, and the train
+command.
 
 Tolerances, float32 (the same math with sums in another order):
   * loss, logits and metrics: 1e-5 (relative to the values' scale);
@@ -56,7 +59,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                cosine_schedule)
 from repro_torch.train import TrainConfig, make_train_step
 
-ARCHS = ["llama3_2_1b", "rwkv6_1b6"]
+ARCHS = ["llama3_2_1b", "rwkv6_1b6", "olmoe_1b_7b", "jamba_1_5_large"]
 TOL = 1e-5
 GRAD_TOL = 1e-4
 OPT = dict(lr=3e-3, warmup_steps=20, total_steps=100)   # launch/train.py's
@@ -145,14 +148,15 @@ def test_loss_and_every_gradient_leaf_match_jax(name):
 @pytest.mark.parametrize("name", ARCHS)
 def test_forward_logits_match_jax(name):
     arch, jp, tp, tokens = _setup(name)
-    want, _ = jlm.forward(jp, {"tokens": jnp.asarray(tokens)}, arch)
+    want, jaux = jlm.forward(jp, {"tokens": jnp.asarray(tokens)}, arch)
     batch = {"tokens": torch.from_numpy(tokens)}
     with torch.no_grad():
         got, aux = lm.forward(tp, batch, arch)
-        got64, _ = lm.forward(lm.tree_map(torch.Tensor.double, tp), batch,
-                              arch)
+        got64, aux64 = lm.forward(lm.tree_map(torch.Tensor.double, tp),
+                                  batch, arch)
     _close(got, want, got64)
-    assert float(aux) == 0.0
+    _close(aux, jaux, aux64)
+    assert (float(aux) > 0) == bool(arch.n_experts)     # MoE balancing loss
 
 
 def test_softmax_xent_matches_jax():
@@ -226,6 +230,30 @@ def test_microbatches_match_one_batch():
         _grad_close(g2[k], g1[k], what=k)
 
 
+@pytest.mark.parametrize("name", ["olmoe_1b_7b", "jamba_1_5_large"])
+def test_microbatched_step_matches_jax(name):
+    """Two microbatches against the reference's two: with MoE layers the
+    averaged load-balancing loss is not one batch's, so the reference's
+    microbatched step is the oracle."""
+    arch, jp, tp, _ = _setup(name)
+    batch = make_dataset(arch, ShapeSpec("t", 16, 4, "train")).batch_at(0)
+    cfg = dict(microbatches=2, time_chunk=4)
+    jp, jo, jm = jax.jit(jmake_train_step(arch, None, JTrainConfig(
+        optimizer=JAdamWConfig(**OPT), **cfg)))(
+        jp, jadamw_init(jp), {"tokens": jnp.asarray(batch["tokens"])})
+    tp, to, tm = make_train_step(arch, None, TrainConfig(
+        optimizer=AdamWConfig(**OPT), **cfg))(
+        tp, adamw_init(tp), {"tokens": torch.from_numpy(batch["tokens"])})
+    for k in jm:
+        _close(tm[k], jm[k], what=k)
+    want = dict(_leaves(_np_tree(jo["m"])))
+    for k, got in _leaves(params_to_numpy(to["m"])):
+        _grad_close(got, want[k], what=k)
+    want = dict(_leaves(_np_tree(jp)))
+    for k, got in _leaves(params_to_numpy(tp)):
+        _params_close(got, want[k], float(jm["lr"]), k)
+
+
 def test_train_step_refuses_what_it_lacks():
     arch = TC.reduced("llama3_2_1b")
 
@@ -235,10 +263,10 @@ def test_train_step_refuses_what_it_lacks():
 
     with pytest.raises(NotImplementedError, match="1F1B"):
         make_train_step(arch, Staged())
-    step = make_train_step(arch, None, TrainConfig(remat_policy="dots"))
+    step = make_train_step(arch, None, TrainConfig(remat_policy="offload"))
     p = lm.init_lm(arch, generator=torch.Generator().manual_seed(0),
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="remat policy"):
+    with pytest.raises(ValueError, match="'dots', 'dots_batch', 'nothing'"):
         step(p, adamw_init(p), {"tokens": torch.zeros(2, 8, dtype=torch.int32)})
 
 
