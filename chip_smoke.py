@@ -32,7 +32,15 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    with jamba's heads, q (1, 64, 4096, 128) against 4096 keys, beside
    SDPA); and at the
    train step's shapes (flash causal q (8, 32, 256, 64), WKV6 (8, 32, 256,
-   64) f32 / bf16, each beside its time before the staged redesign).  One
+   64) f32 / bf16, each beside its time before the staged redesign); and
+   flash's non-causal form, as an encoder runs it, f32 / bf16 beside SDPA
+   at seamless-m4t-v2's serve and train shapes (q (8, 16, 256, 64) and
+   (8, 16, 128, 64) against as many keys) and at S = T = 300; causal
+   flash and dense decode f32 / bf16 at the lockstep serve paths' shapes:
+   seamless-m4t-v2's decoder prefill q (8, 16, 256, 64) against its
+   288-row cache and its decode (8, 16, 1, 64) over that row, and
+   internvl2-76b's prefill q (4, 64, 512, 128) against 8 KV heads of a
+   545-row cache and its decode (4, 8, 8, 128), with ragged kv_len.  One
    JSON line per phase: error and tolerance, the kernel's, the plain
    version's and the library call's time, and the bound.  The library calls are yardsticks only, never on the port's
    path: SDPA for attention, ``index_put_`` into a zeroed buffer for the
@@ -51,10 +59,13 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    small jamba (4 layers in its 2-layer Mamba / attention + MoE pattern,
    N 16) in their three modes, with the experts each token chose compared
    first: logits are held only for the requests whose routing agreed on
-   both sides.  Then two train steps of a small llama, rwkv6, olmoe and
-   jamba on the card and on the CPU from the same weights and batches
-   (the MoE models' step-1 routing must agree first): metrics, moments
-   and parameters must agree.
+   both sides.  A small encoder-decoder and a small VLM (16 frames or
+   frontend embeddings + 16 tokens) in lockstep: prefill logits and 8
+   decode steps, and a dense cache continued mid-sequence (``cache_pos``
+   16, S 8).  Then two train steps of a small llama, rwkv6, olmoe, jamba,
+   encoder-decoder and VLM on the card and on the CPU from the same
+   weights and batches (the MoE models' step-1 routing must agree first):
+   metrics, moments and parameters must agree.
 4. serve: full-width llama3.2-1b in float32, ServeEngine with 8 slots and
    max_len 1024, 12 seeded requests (prompts 60-700 tokens, half behind a
    shared 256-token prefix, 32 new tokens each), in four modes:
@@ -81,7 +92,16 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    no WKV6 kernel.  Each full-width run is profiled once more for the
    device's busy share, its top kernels and the MoE and scan kernels'
    share of its device time (rwkv6's (b) alone: the plain WKV6's share
-   of device and wall time).
+   of device and wall time).  Then full-width, full-depth seamless-m4t-v2
+   (24 + 24 layers) through the serve command's lockstep encoder-decoder
+   path (batch 8, 256 frames + 256 tokens, 32 new tokens): flash 48 times
+   a prefill, the dense decode 24 times a step; then the command's own
+   loop profiled for the busy share, and cross-attention's share of the
+   device time between the first and the last of the markers around each
+   layer's cross-attention in 16 decode steps.  Then internvl2-76b at its published
+   width in 2 layers: lockstep over 256 frontend embeddings + 256 text
+   tokens at batch 4 (32 decode steps), then the engine's mode (a) on the
+   text prompts.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b, and
    olmoe-1b-7b at full width cut to ``OLMOE_TRAIN_DEPTH`` layers, in
    float32, batch 8 x 256 tokens, 4 AdamW steps each through
@@ -91,9 +111,12 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    give finite losses and a finite, nonzero gradient to every parameter
    leaf (each expert of an MoE leaf) at step 1 (read from the first AdamW
    moment).  Step time, tok/s, peak memory and the device's busy share of
-   one profiled step.  Then the train command itself on the card, at the
-   published width and depth 2, for the three.  Then llama3.2-1b, 2 steps
-   under each remat policy: peak memory and step time, gradients equal.
+   one profiled step.  The same for seamless-m4t-v2 whole (128 frames +
+   128 tokens) and internvl2-76b cut to 1 layer (2 steps at batch 4 x
+   512, 256 of them frontend embeddings).  Then the train command itself
+   on the card, at the published width and depth 1-2, for the five.
+   Then llama3.2-1b, 2 steps under each remat policy: peak memory and
+   step time, gradients equal.
 6. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
@@ -396,43 +419,46 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
 
 
 def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
-                D=64, plain_iters=5):
+                D=64, plain_iters=5, B=1, causal=True):
     """Stall-the-world prefill's shape: q (1, H, S, D) of an S-token
     prompt against its cache row: llama3.2's paged row (S rounded up to
     whole 128-blocks), or olmoe's dense max_len row; or a long prompt at
     S = T (timed, with SDPA beside it, to rank flash against the library
-    on a larger problem)."""
+    on a larger problem).  ``causal=False``: an encoder's self-attention,
+    q (B, H, S, D) against all T keys (the flops 4 B H D S T)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device=device).manual_seed(SEED)
-    q = torch.randn(1, H, S, D, generator=g, device=device).to(dtype)
-    k = torch.randn(1, KH, T, D, generator=g, device=device).to(dtype)
-    v = torch.randn(1, KH, T, D, generator=g, device=device).to(dtype)
-    k[:, :, S:] = 0          # the row past the prompt holds zeros
-    v[:, :, S:] = 0
-    got = ops.flash_attention(q, k, v, causal=True)
-    want = ref.attention_ref(q, k, v, causal=True)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+    q = torch.randn(B, H, S, D, generator=g, device=device).to(dtype)
+    k = torch.randn(B, KH, T, D, generator=g, device=device).to(dtype)
+    v = torch.randn(B, KH, T, D, generator=g, device=device).to(dtype)
+    if causal:
+        k[:, :, S:] = 0      # the row past the prompt holds zeros
+        v[:, :, S:] = 0
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.attention_ref(q, k, v, causal=causal)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                          enable_gqa=True)
     torch.cuda.synchronize()
     dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
     err = float((got.float() - want.float()).abs().max())
     lib_err = float((lib.float() - want.float()).abs().max())
-    B, H, _, D = q.shape
-    pairs = sum(min(s + 1, T) for s in range(S))         # causal work
+    pairs = (sum(min(s + 1, T) for s in range(S)) if causal   # causal work
+             else S * T)
     flops = 4 * B * H * D * pairs
     bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     b_ms, b_by = bound(bytes_, flops, dt)
     res = {"phase": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
-           "max_abs_err": err, "tol": TOL[dt],
+           "causal": causal, "max_abs_err": err, "tol": TOL[dt],
            "kernel_ms": timer(lambda: ops.flash_attention(q, k, v,
-                                                          causal=True)),
+                                                          causal=causal)),
            "kernel_call_ms": timer(lambda: ops.flash_attention(
-               q, k, v, causal=True), host=True),
-           "plain_ms": timer(lambda: ref.attention_ref(q, k, v, causal=True),
+               q, k, v, causal=causal), host=True),
+           "plain_ms": timer(lambda: ref.attention_ref(q, k, v,
+                                                       causal=causal),
                              iters=plain_iters),
            "library_ms": timer(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True)),
+               q, k, v, is_causal=causal, enable_gqa=True)),
            "library_max_abs_err": lib_err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": bytes_,
            "flops": flops}
@@ -528,7 +554,8 @@ def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
                  T=1024):
     """Dense-cache decode at the engine's shape: the (B, T, KH, D) cache
     passed transposed, ragged kv_len (prompts + 32 new tokens, tile and
-    range edges, one full row)."""
+    range edges, one full row; all below T).  The split over the KV axis
+    depends on T alone, so a T-row cache takes the main path's split."""
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -537,7 +564,7 @@ def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
     q = torch.randn(B, KH, G, D, generator=g, device=device).to(dtype)
     kc = torch.randn(B, T, KH, D, generator=g, device=device).to(dtype)
     vc = torch.randn(B, T, KH, D, generator=g, device=device).to(dtype)
-    kv_len = rng.integers(60, 733, B).astype(np.int32)
+    kv_len = rng.integers(60, min(733, T), B).astype(np.int32)
     kv_len[:3] = [64, 65, T]
     kv_len = torch.as_tensor(kv_len, device=device)
     k, v = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -1169,10 +1196,112 @@ def phase_reference_moe(torch, device, name, modes, kernels):
                  f"({launches})")
 
 
+def small_seq2seq_archs() -> dict:
+    """The small encoder-decoder and VLM held card vs CPU: seamless-m4t-v2
+    in 2 + 2 layers, d 256, 4 heads of 64, vocab 512; internvl2's reduced
+    shape widened to d 256, 4 heads of 64 over 2 KV heads, vocab 512, 16
+    frontend embeddings."""
+    import dataclasses
+    from repro_torch import configs
+    return {
+        "seamless": dataclasses.replace(
+            configs.get("seamless-m4t-large-v2"), name="seamless-small",
+            n_layers=2, enc_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
+            d_ff=512, vocab=512),
+        "internvl2": dataclasses.replace(
+            configs.get("internvl2-76b"), name="internvl2-small", n_layers=2,
+            d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512,
+            vocab=512, frontend_tokens=16)}
+
+
+def lockstep(torch, arch, params, batch, gen, feed=None):
+    """The serve command's lockstep loop (``launch.serve.lockstep``: one
+    prefill over dense rows, then ``gen - 1`` decode steps at one scalar
+    position) for an encoder-decoder or a VLM, with the launch counts of
+    the run (reset just before it, read just after): flash launches in
+    the prefill alone, the dense decode in the steps alone."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ops.reset_launch_counts()
+    out = serve.lockstep(params, arch, batch, gen, feed=feed)
+    out["launches"] = ops.launch_counts()
+    out["finite"] = all(bool(torch.isfinite(o).all()) for o in out["logits"])
+    return out
+
+
+def phase_reference_seq2seq(torch, device):
+    """The small encoder-decoder and VLM (:func:`small_seq2seq_archs`) in
+    lockstep on the card and on the CPU with the same weights and batch (16
+    frames or frontend embeddings + 16 tokens, batch 2): the prefill
+    logits and 8 decode steps, the card fed the CPU's greedy tokens, all
+    within ``REF_LOGIT_TOL``; the card's run must launch flash once a
+    layer of each stack (the encoder's non-causal) and the dense decode
+    once a decoder layer a step.  Then one dense cache continued
+    mid-sequence (``layers.attention``, scalar ``cache_pos`` 16, S 8, over
+    a row holding 16 tokens), output and cache, card vs CPU."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    cpu = torch.device("cpu")
+    tol = REF_LOGIT_TOL["a"]
+    for name, arch in small_seq2seq_archs().items():
+        params = init_model(torch, arch, "cpu",
+                            torch.Generator().manual_seed(SEED))
+        batch = batches_for(torch, arch, 2, 32, 1, cpu)[0]
+        want = lockstep(torch, arch, params, batch, 9)
+        p = lm.tree_map(lambda t: t.to(device), params)
+        got = lockstep(torch, arch, p, {k: v.to(device)
+                                        for k, v in batch.items()},
+                       9, feed=want["tokens"][:, :-1])
+        del p
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(got["logits"], want["logits"]))
+        n_layers = arch.n_layers + arch.enc_layers
+        res = {"phase": f"reference-{name}", "arch": arch.name,
+               "batch": {k: list(v.shape) for k, v in batch.items()},
+               "decode_steps": 8, "logits_max_abs_err": err, "tol": tol,
+               "launches": got["launches"]}
+        emit(res)
+        if not (err <= tol and got["finite"]):
+            fail(f"reference-{name}: card vs CPU logits differ by {err}")
+        if (got["launches"]["flash_attention"] != n_layers
+                or got["launches"]["decode_attention"] != 8 * arch.n_layers):
+            fail(f"reference-{name}: launches {got['launches']} (want flash "
+                 f"{n_layers}, decode {8 * arch.n_layers})")
+
+    arch = small_seq2seq_archs()["internvl2"]
+    g = torch.Generator().manual_seed(SEED)
+    p = L.init_attention(arch, torch.float32, generator=g, device="cpu")
+    shape = (2, 32, arch.n_kv_heads, arch.hd)
+    cache = {k: torch.zeros(shape) for k in ("k", "v")}
+    for c in cache.values():
+        c[:, :16] = torch.randn(2, 16, *shape[2:], generator=g)
+    x = torch.randn(2, 8, arch.d_model, generator=g)
+    outs = {}
+    for dev in (device, cpu):
+        c = {k: v.to(dev, copy=True) for k, v in cache.items()}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            o, c = L.attention(lm.tree_map(lambda t: t.to(dev), p),
+                               x.to(dev), arch,
+                               positions=torch.arange(16, 24, device=dev),
+                               kv_cache=c, cache_pos=16)
+        outs[dev.type] = (o.cpu(), {k: v.cpu() for k, v in c.items()},
+                          ops.launch_counts())
+    (go, gc, launched), (co, cc, _) = outs["cuda"], outs["cpu"]
+    err = max(float((go - co).abs().max()),
+              *(float((gc[k] - cc[k]).abs().max()) for k in gc))
+    emit({"phase": "reference-midseq", "q": [2, 8, arch.n_heads, arch.hd],
+          "cache": list(shape), "cache_pos": 16, "max_abs_err": err,
+          "tol": tol, "launches_card": launched})
+    if not err <= tol:
+        fail(f"reference-midseq: card vs CPU differ by {err}")
+
+
 def busy_share(torch, fn, bracket=None):
     """Run ``fn`` once under ``torch.profiler`` (device activity only);
-    returns (wall s, device busy s, top kernels, watched kernels, bracketed
-    s).  Busy time is the sum of the device events' durations (kernels,
+    returns (wall s, device busy s, top kernels, watched kernels,
+    (bracketed s, markers, window s)).  Busy time is the sum of the device events' durations (kernels,
     copies, memsets; one stream, so they do not overlap), read from the
     raw trace: building the profiler's per-operator tables takes minutes
     for a run of ~10^5 launches.  The watched kernels: device time, count
@@ -1180,7 +1309,8 @@ def busy_share(torch, fn, bracket=None):
     ``PROFILE_WATCH``.  ``bracket``: part of the name of a marker kernel
     that ``fn`` launches before and after some of its work; the bracketed
     time sums the device events between each pair (the markers are left
-    out of every sum), and ``markers`` counts them."""
+    out of every sum), ``markers`` counts them, and the window sums every
+    device event between the first marker and the last."""
     from collections import defaultdict
 
     from torch.profiler import ProfilerActivity, profile
@@ -1194,16 +1324,18 @@ def busy_share(torch, fn, bracket=None):
     events = sorted((e for e in prof.profiler.kineto_results.events()
                      if str(e.device_type()).endswith("CUDA")),
                     key=lambda e: e.start_ns())
-    inside, bracketed, markers = False, 0, 0
+    inside, bracketed, markers, since, window = False, 0, 0, 0, 0
     for e in events:
         if bracket and bracket in e.name():
             inside = not inside
             markers += 1
+            window = since
             continue
         row = by_name[e.name()]
         row[0] += e.duration_ns()
         row[1] += 1
         bracketed += e.duration_ns() if inside else 0
+        since += e.duration_ns() if markers else 0
     busy = sum(ns for ns, _ in by_name.values()) / 1e9
     rows = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
     top = [{"name": name[:80], "device_ms": ns / 1e6, "count": n}
@@ -1214,7 +1346,7 @@ def busy_share(torch, fn, bracket=None):
         watched[w] = {"device_ms": ns / 1e6,
                       "count": sum(n for name, (_, n) in rows if w in name),
                       "share": ns / 1e9 / busy if busy else None}
-    return wall, busy, top, watched, (bracketed / 1e9, markers)
+    return wall, busy, top, watched, (bracketed / 1e9, markers, window / 1e9)
 
 
 def profile_run(torch, params, arch, requests, mode, modes, wall_s,
@@ -1242,7 +1374,8 @@ def profile_run(torch, params, arch, requests, mode, modes, wall_s,
            "device_busy_share_unprofiled": busy / wall_s,
            "top_kernels": top, "watched_kernels": watched}
     if bracket is not None:
-        res["bracketed_device_s"], res["bracket_markers"] = inside
+        (res["bracketed_device_s"], res["bracket_markers"],
+         res["bracket_window_device_s"]) = inside
     return res
 
 
@@ -1575,6 +1708,201 @@ def phase_serve_rwkv(torch, device):
     return counts
 
 
+@contextlib.contextmanager
+def cross_attention_watch(log: dict, marker, marked: range):
+    """Wrap ``lm._cross_attend`` so that ``marker`` (a launch of one
+    near-empty kernel) brackets in the device trace (see
+    :func:`busy_share`) each decoder layer's cross-attention whose index
+    among the run's calls is in ``marked``: its norm, the memory's K/V
+    projection, the chunked core and the output projection.
+    ``log["calls"]`` counts the calls, ``log["marked"]`` the bracketed."""
+    from repro_torch.models import lm
+    real = lm._cross_attend
+
+    def cross(h, lp, arch, positions, memory):
+        if memory is None:
+            return real(h, lp, arch, positions, memory)
+        mark = log["calls"] in marked
+        log["calls"] += 1
+        if not mark:
+            return real(h, lp, arch, positions, memory)
+        marker()
+        out = real(h, lp, arch, positions, memory)
+        marker()
+        log["marked"] += 1
+        return out
+    lm._cross_attend = cross
+    try:
+        yield log
+    finally:
+        lm._cross_attend = real
+
+
+SEAMLESS_SERVE = ["--arch", "seamless-m4t-large-v2", "--width", "0",
+                  "--depth", "0", "--vocab", "0", "--batch", "8",
+                  "--prompt-len", "512", "--gen", "32"]
+
+
+def phase_serve_seamless(torch, device):
+    """Full-width, full-depth seamless-m4t-v2 (24 + 24 layers, d 1024, 16
+    heads of 64, d_ff 8192, vocab 256206; 2.04 B parameters) in float32,
+    random weights, through the serve command (``SEAMLESS_SERVE``): its
+    lockstep encoder-decoder path at batch 8, ``--prompt-len 512`` (256
+    frames + 256 decoder tokens), ``--gen 32``.  The command runs a
+    prefill and a step on a throwaway cache first, then the timed prefill
+    and 31 steps: flash must launch 48 times a prefill (24 non-causal in
+    the encoder, 24 causal in the decoder), the dense decode 24 times a
+    step.  Then the command's loop (``launch.serve.lockstep``) on the
+    command's weights and batch once more under the profiler, for the
+    busy share; and a prefill and 18 decode steps under it with markers
+    around each layer's cross-attention in the middle 16 steps: its share
+    of the device time between the first marker and the last."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    arch = configs.get("seamless-m4t-large-v2")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.main(SEAMLESS_SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_prefill = arch.enc_layers + arch.n_layers
+    want = {"flash_attention": 2 * per_prefill,        # warm-up + timed
+            "decode_attention": arch.n_layers * 32}    # 1 warm-up + 31
+    gen = out["tokens"]
+    res = {"phase": "serve-seamless", "arch": arch.name,
+           "gen": list(gen.shape), "wall_s": wall,
+           "prefill_ms": out["prefill_s"] * 1e3,
+           "decode_ms": out["decode_s"] * 1e3,
+           "decode_ms_per_step": out["decode_s"] * 1e3 / 31,
+           "decode_tok_s": out["decode_tok_s"],
+           "launches": counts, "launches_expected": want,
+           "flash_per_prefill": counts["flash_attention"] / 2,
+           "decode_per_step": counts["decode_attention"] / 32,
+           "max_memory_allocated_gb": peak}
+    if any(counts[k] != n for k, n in want.items()):
+        fail(f"serve-seamless: launches {counts} (want {want})")
+    if not bool((gen >= 0).all() and (gen < arch.vocab).all()):
+        fail("serve-seamless: tokens out of the vocabulary")
+    del out
+
+    args = serve.parser().parse_args(SEAMLESS_SERVE)
+    params, batch = serve.encdec_inputs(args, arch, device, torch.float32)
+    res.update({"params": sum(t.numel() for _, t in lm.tree_leaves(params)),
+                "batch": {k: list(v.shape) for k, v in batch.items()}})
+    ls = None
+
+    def run():
+        nonlocal ls
+        ls = lockstep(torch, arch, params, batch, 32)
+    wall_p, busy, top, _, _ = busy_share(torch, run)
+    res.update({"profile_wall_s": wall_p, "device_busy_s": busy,
+                "device_busy_share": busy / wall_p,
+                "device_busy_share_unprofiled":
+                    busy / (ls["prefill_s"] + ls["decode_s"]),
+                "top_kernels": top, "finite": ls["finite"]})
+    if not ls["finite"]:
+        fail("serve-seamless: non-finite logits")
+    res["tokens_equal_command"] = bool(torch.equal(ls["tokens"], gen))
+
+    # a prefill (24 cross-attention calls) and 18 steps (24 each); the
+    # middle 16 steps' calls are bracketed by markers (torch.cuda._sleep
+    # launches ATen's spin_kernel), so that no marker is the trace's
+    # first or last event (one went missing there in a run with no
+    # unmarked steps)
+    n = arch.n_layers
+    log = {"calls": 0, "marked": 0}
+    with cross_attention_watch(log, lambda: torch.cuda._sleep(0),
+                               range(2 * n, 18 * n)):
+        wall_d, busy_d, top_d, _, (xs, markers, window) = busy_share(
+            torch, lambda: lockstep(torch, arch, params, batch, 19),
+            bracket="spin_kernel")
+    res.update({"decode_profile": {
+        "decode_steps": 18, "marked_steps": 16, "wall_s": wall_d,
+        "device_busy_s": busy_d, "top_kernels": top_d,
+        "cross_attention_calls": log["calls"],
+        "cross_attention_marked": log["marked"],
+        "cross_attention_device_s": xs,
+        "cross_attention_device_ms_per_step": xs * 1e3 / 16,
+        "window_device_s": window,
+        "cross_attention_device_share": xs / window,
+        "markers": markers}})
+    emit(res)
+    if markers != 2 * log["marked"] or log["marked"] != 16 * n:
+        fail(f"serve-seamless: {markers} markers for {log['marked']} "
+             f"marked cross-attention calls (want {16 * n})")
+    del params, batch, ls
+    return {"serve-seamless": counts}
+
+
+def internvl2_one_card(depth: int):
+    """internvl2-76b at its published width (d 8192, 64 heads over 8 KV
+    heads of 128, d_ff 28672, vocab 128256), cut in depth by
+    ``reduced_arch``: its 80 layers are ~70 B parameters."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.train import reduced_arch
+    return dataclasses.replace(
+        reduced_arch(configs.get("internvl2-76b"), 0, depth, 0),
+        name=f"internvl2-76b-d{depth}")
+
+
+def phase_serve_internvl2(torch, device):
+    """internvl2-76b at published width in 2 layers (3.81 B parameters) in
+    float32, random weights: ``lm.prefill`` with 256 frontend embeddings +
+    256 text tokens at batch 4 over dense rows, then 32 lockstep decode
+    steps at one scalar position (flash once a layer in the prefill, the
+    dense decode once a layer a step, asserted), profiled once more for
+    the busy share; then the engine on the llama phase's text prompts in
+    mode (a) (paged, chunked, prefix cache), as the reference's command
+    serves a VLM, which must launch the paged decode."""
+    from repro_torch.models import lm
+    arch = internvl2_one_card(2)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = lm.init_lm(arch, torch.float32, generator=gen, device=device)
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    batch = batches_for(torch, arch, 4, 512, 1, device)[0]
+    out = lockstep(torch, arch, params, batch, 33)
+    want = {"flash_attention": arch.n_layers,
+            "decode_attention": arch.n_layers * 32}
+    got = {k: out["launches"][k] for k in want}
+    wall_p, busy, top, _, _ = busy_share(
+        torch, lambda: lockstep(torch, arch, params, batch, 33))
+    res = {"phase": "serve-internvl2-lockstep", "arch": arch.name,
+           "params": n_params,
+           "batch": {k: list(v.shape) for k, v in batch.items()},
+           "decode_steps": 32, "prefill_ms": out["prefill_s"] * 1e3,
+           "decode_ms_per_step": out["decode_s"] * 1e3 / 32,
+           "decode_tok_s": 4 * 32 / out["decode_s"],
+           "launches": out["launches"], "finite": out["finite"],
+           "profile_wall_s": wall_p, "device_busy_s": busy,
+           "device_busy_share": busy / wall_p,
+           "device_busy_share_unprofiled":
+               busy / (out["prefill_s"] + out["decode_s"]),
+           "top_kernels": top,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    emit(res)
+    if got != want or not out["finite"]:
+        fail(f"serve-internvl2-lockstep: launches {got} (want {want}), "
+             f"finite {out['finite']}")
+    counts = {"serve-internvl2-lockstep": out["launches"]}
+    del batch, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    modes = {"a": SERVE_MODES["a"]}
+    _, engine_counts = serve_modes(
+        torch, params, arch, make_requests(arch.vocab), device,
+        name="serve-internvl2", modes=modes,
+        need={"a": ["paged_decode_attention"]}, profile=())
+    counts.update(engine_counts)
+    del params
+    return counts
+
+
 # --------------------------------------------------------------------------- #
 # phases 3 and 5: training
 # --------------------------------------------------------------------------- #
@@ -1585,11 +1913,20 @@ def make_step(torch, arch, steps):
         optimizer=AdamWConfig(total_steps=steps, **TRAIN_OPT), **TRAIN_CFG))
 
 
-def batches_for(arch, batch, seq, steps):
+def batches_for(torch, arch, batch, seq, steps, device):
+    """The train command's dataset batches on ``device``: tokens, with
+    frames (an encoder-decoder) or frontend embeddings (a VLM)."""
     from repro_torch.data import make_dataset
     from repro_torch.models.arch import ShapeSpec
     ds = make_dataset(arch, ShapeSpec("custom", seq, batch, "train"))
-    return [ds.batch_at(s)["tokens"] for s in range(steps)]
+    return [{k: torch.as_tensor(v, device=device)
+             for k, v in ds.batch_at(s).items()} for s in range(steps)]
+
+
+def init_model(torch, arch, device, generator, dtype=None):
+    """``models.init_params``, as the train command calls it."""
+    from repro_torch.models import init_params
+    return init_params(arch, dtype, generator=generator, device=device)
 
 
 def flat(torch, tree):
@@ -1599,12 +1936,13 @@ def flat(torch, tree):
 
 
 def phase_reference_train(torch, device):
-    """Two train steps of four small models on the card (kernels forward,
+    """Two train steps of six small models on the card (kernels forward,
     plain gradients) and on the CPU (plain versions), from the same
-    weights and batches: a llama, an rwkv6 (head size 64), and the olmoe
-    and jamba of :func:`small_moe_arch`.  The CPU runs the llama and the
-    rwkv6 once more with the model in float64 to measure float32's own
-    error; an MoE model routes in float32 whatever its dtype, so such a
+    weights and batches: a llama, an rwkv6 (head size 64), the olmoe and
+    jamba of :func:`small_moe_arch`, and the encoder-decoder and VLM of
+    :func:`small_seq2seq_archs` (on frames or frontend embeddings).  The
+    CPU runs the models without experts once more in float64 to measure
+    float32's own error; an MoE model routes in float32 whatever its dtype, so such a
     run could choose other experts, and the MoE models are held to the
     tolerances alone.  Their routing is compared first: on a near-tie the
     card and the CPU may choose different experts, which moves the loss
@@ -1627,13 +1965,14 @@ def phase_reference_train(torch, device):
              "jamba": (small_moe_arch("jamba"),
                        ["flash_attention", "moe_scatter", "moe_gather",
                         "mamba_scan"])}
+    small.update((name, (arch, ["flash_attention"]))
+                 for name, arch in small_seq2seq_archs().items())
     tol = TRAIN_REF_TOL
     cpu = torch.device("cpu")
     for name, (arch, kernels) in small.items():
-        params = lm.init_lm(arch, torch.float32,
-                            generator=torch.Generator().manual_seed(SEED),
-                            device="cpu")
-        batches = batches_for(arch, 2, 64, 2)
+        params = init_model(torch, arch, "cpu",
+                            torch.Generator().manual_seed(SEED))
+        batches = batches_for(torch, arch, 2, 64, 2, cpu)
         step = make_step(torch, arch, 2)
         sides = [("card", device, torch.float32), ("cpu", cpu, torch.float32)]
         if not arch.n_experts:
@@ -1648,8 +1987,8 @@ def phase_reference_train(torch, device):
             try:
                 ops.reset_launch_counts()
                 for b in batches:
-                    p, o, m = step(p, o, {"tokens": torch.as_tensor(
-                        b, device=dev)})
+                    p, o, m = step(p, o, {k: v.to(dev)
+                                          for k, v in b.items()})
                     mets.append({k: float(v) for k, v in m.items()})
                     log.setdefault("step1", len(log["calls"]))
                 launched = ops.launch_counts()
@@ -1719,8 +2058,10 @@ def train_launches(arch) -> dict:
     after the last op that saved a tensor for the unit's backward pass
     (checkpoint's early stop): an inner checkpoint at the end of the unit
     (the last layer's MoE) is past it, and is not run there.  Backward
-    passes run plain versions and launch nothing."""
-    per = {}
+    passes run plain versions and launch nothing.  An encoder-decoder's
+    encoder adds its layers' flash, twice each; cross-attention launches
+    nothing (the chunked core is plain)."""
+    per = {"flash_attention": 2 * arch.enc_layers} if arch.enc_layers else {}
     add = lambda k, n: per.__setitem__(k, per.get(k, 0) + n * arch.n_units)
     last = len(arch.pattern) - 1
     for j, spec in enumerate(arch.pattern):
@@ -1781,21 +2122,20 @@ def olmoe_train_arch():
         name=f"olmoe-1b-7b-d{OLMOE_TRAIN_DEPTH}")
 
 
-def train_full(torch, device, arch, steps=4):
-    """``arch`` in float32: ``steps`` AdamW steps at batch 8 x 256
-    through ``make_train_step``, launch counts reset just before and read
-    just after, each kernel's held to :func:`train_launches`; then one more
-    step under the profiler."""
+def train_full(torch, device, arch, steps=4, batch=8, seq=256):
+    """``arch`` in float32: ``steps`` AdamW steps at ``batch`` x ``seq``
+    (an encoder-decoder's frames and tokens, or a VLM's frontend and text,
+    together) through ``make_train_step``, launch counts reset just before
+    and read just after, each kernel's held to :func:`train_launches`; then
+    one more step under the profiler."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
     from repro_torch.optim import adamw_init
-    params = lm.init_lm(arch, torch.float32,
-                        generator=torch.Generator(device=device)
-                        .manual_seed(SEED), device=device)
+    params = init_model(torch, arch, device,
+                        torch.Generator(device=device).manual_seed(SEED))
     opt = adamw_init(params)
     step = make_step(torch, arch, 100)
-    batches = [torch.as_tensor(b, device=device)
-               for b in batches_for(arch, 8, 256, steps + 1)]
+    batches = batches_for(torch, arch, batch, seq, steps + 1, device)
     n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1808,7 +2148,7 @@ def train_full(torch, device, arch, steps=4):
         restore = record_routing(log) if s == 0 else (lambda: None)
         t0 = time.perf_counter()
         try:
-            params, opt, m = step(params, opt, {"tokens": batches[s]})
+            params, opt, m = step(params, opt, batches[s])
             torch.cuda.synchronize()
         finally:
             restore()
@@ -1822,12 +2162,13 @@ def train_full(torch, device, arch, steps=4):
     peak = torch.cuda.max_memory_allocated()
     want = {k: n * steps for k, n in train_launches(arch).items()}
     wall, busy, top, _, _ = busy_share(
-        torch, lambda: step(params, opt, {"tokens": batches[steps]}))
+        torch, lambda: step(params, opt, batches[steps]))
     step_s = sum(times[1:]) / len(times[1:])
-    tokens = batches[0].numel()
+    tokens = batch * seq
     res = {"phase": f"train-{arch.name}", "params": n_params,
-           "layers": arch.n_layers,
-           "batch": list(batches[0].shape), "steps": steps,
+           "layers": arch.n_layers, "enc_layers": arch.enc_layers,
+           "batch": {k: list(v.shape) for k, v in batches[0].items()},
+           "steps": steps,
            "step_ms": [t * 1e3 for t in times],
            "step_ms_after_first": step_s * 1e3, "tok_s": tokens / step_s,
            "loss": [m["loss"] for m in mets],
@@ -1876,8 +2217,7 @@ def phase_remat(torch, device):
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.train import TrainConfig, make_train_step
     arch = configs.get("llama3.2-1b")
-    batches = [torch.as_tensor(b, device=device)
-               for b in batches_for(arch, 8, 256, 2)]
+    batches = batches_for(torch, arch, 8, 256, 2, device)
     want = {k: 2 * n for k, n in train_launches(arch).items()}
     counts, base = {}, None
     for i, policy in enumerate(REMAT_POLICIES + ("nothing",)):
@@ -1894,7 +2234,7 @@ def phase_remat(torch, device):
         times, mets = [], []
         for b in batches:
             t0 = time.perf_counter()
-            params, opt, m = step(params, opt, {"tokens": b})
+            params, opt, m = step(params, opt, b)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             mets.append({k: float(v) for k, v in m.items()})
@@ -1922,7 +2262,7 @@ def phase_remat(torch, device):
         tree = lm.tree_map(lambda t: t.detach().requires_grad_(), params)
         # the loss alone: its metrics hold the graph, which holds the
         # parameters, past this run
-        loss = lm.loss_fn(tree, {"tokens": batches[0]}, arch,
+        loss = lm.loss_fn(tree, batches[0], arch,
                           q_chunk=TRAIN_CFG["q_chunk"],
                           time_chunk=TRAIN_CFG["time_chunk"],
                           remat_policy=policy)[0]
@@ -1958,21 +2298,37 @@ def phase_remat(torch, device):
 
 
 def phase_train(torch, device):
+    """The full-width train runs (:func:`train_full`): llama3.2-1b,
+    rwkv6-1.6b and seamless-m4t-v2 whole at batch 8 x 256 (seamless: 128
+    frames + 128 tokens), olmoe-1b-7b cut to ``OLMOE_TRAIN_DEPTH`` layers,
+    internvl2-76b cut to 1 layer at batch 4 x 512 (256 frontend
+    embeddings + 256 text tokens; 2.96 B parameters, ~47 GB of float32
+    train state); then the train command on each arch at its published
+    width, 1-2 layers; then the remat policies."""
     from repro_torch import configs
     counts = {}
-    for arch in (configs.get("llama3.2-1b"), configs.get("rwkv6-1.6b"),
-                 olmoe_train_arch()):
-        counts[f"train-{arch.name}"] = train_full(torch, device, arch)
+    for arch, kw in ((configs.get("llama3.2-1b"), {}),
+                     (configs.get("rwkv6-1.6b"), {}),
+                     (olmoe_train_arch(), {}),
+                     (configs.get("seamless-m4t-large-v2"), {}),
+                     (internvl2_one_card(1),
+                      dict(steps=2, batch=4, seq=512))):
+        counts[f"train-{arch.name}"] = train_full(torch, device, arch, **kw)
     from repro_torch.launch import train
-    for name, width in (("llama3.2-1b", "2048"), ("rwkv6-1.6b", "2048"),
-                        ("olmoe-1b-7b", "0")):
+    for name, width, depth, seq in (
+            ("llama3.2-1b", "2048", "2", "64"),
+            ("rwkv6-1.6b", "2048", "2", "64"),
+            ("olmoe-1b-7b", "0", "2", "64"),
+            ("seamless-m4t-large-v2", "0", "2", "64"),
+            ("internvl2-76b", "0", "1", "320")):
         t0 = time.perf_counter()
         # the published width (head dims the kernels take; olmoe's 64
-        # experts of d_ff 1024) at depth 2
+        # experts of d_ff 1024) at depth 1-2; a VLM's sequence holds its
+        # 256 frontend embeddings
         hist = train.main(["--arch", name, "--width", width, "--depth",
-                           "2", "--vocab", "512", "--steps", "3", "--batch",
-                           "4", "--seq", "64", "--ckpt-every", "0",
-                           "--log-every", "1"])
+                           depth, "--vocab", "512", "--steps", "3",
+                           "--batch", "4", "--seq", seq, "--ckpt-every",
+                           "0", "--log-every", "1"])
         ok = (len(hist) == 3
               and all(math.isfinite(h["loss"]) for h in hist))
         emit({"phase": f"train-cli-{name}", "seconds":
@@ -2152,6 +2508,30 @@ def main() -> int:
             S=256, N=8)),
         ("mamba-dt0", lambda: phase_mamba_dt0(torch, device)),
         ("flash-train-f32", lambda: phase_flash_train(torch, timer, device)),
+        # the encoder's non-causal form: seamless' serve and train shapes
+        # (S = T, 16 heads of 64, each its own KV head), and S = T = 300
+        *((f"flash-full-{tag}-{dn}", lambda S=S, dt=dt, tag=tag, dn=dn:
+           phase_flash(torch, timer, device, f"flash-full-{tag}-{dn}", dt,
+                       S=S, T=S, H=16, KH=16, D=64, B=8, causal=False))
+          for tag, S in (("serve", 256), ("train", 128), ("300", 300))
+          for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))),
+        # the lockstep serve paths: seamless' decoder prefill q (8, 16,
+        # 256, 64) against its 288-row cache (256 tokens + 32 new) and its
+        # decode over that row; internvl2's prefill q (4, 64, 512, 128)
+        # (256 frontend + 256 text) against 8 KV heads of a 545-row cache
+        # and its decode (G 8)
+        *((f"flash-{tag}-{dn}", lambda dt=dt, tag=tag, dn=dn, kw=kw:
+           phase_flash(torch, timer, device, f"flash-{tag}-{dn}", dt, **kw))
+          for tag, kw in (("seamless", dict(S=256, T=288, H=16, KH=16, D=64,
+                                            B=8)),
+                          ("internvl2", dict(S=512, T=545, H=64, KH=8,
+                                             D=128, B=4)))
+          for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))),
+        *((f"decode-{tag}-{dn}", lambda dt=dt, tag=tag, dn=dn, kw=kw:
+           phase_decode(torch, timer, device, f"decode-{tag}-{dn}", dt, **kw))
+          for tag, kw in (("seamless", dict(B=8, KH=16, G=1, D=64, T=288)),
+                          ("internvl2", dict(B=4, KH=8, G=8, D=128, T=545)))
+          for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))),
         ("wkv6-f32", lambda: phase_wkv6(torch, timer, device, "wkv6-f32",
                                         torch.float32)),
         ("wkv6-bf16", lambda: phase_wkv6(torch, timer, device, "wkv6-bf16",
@@ -2164,11 +2544,15 @@ def main() -> int:
         ("reference-jamba", lambda: phase_reference_moe(
             torch, device, "jamba", JAMBA_MODES,
             ["moe_scatter", "moe_gather", "mamba_scan"])),
+        ("reference-seq2seq", lambda: phase_reference_seq2seq(torch,
+                                                              device)),
         ("reference-train", lambda: phase_reference_train(torch, device)),
         ("serve", lambda: phase_serve(torch, device)),
         ("serve-olmoe", lambda: phase_serve_olmoe(torch, device)),
         ("serve-jamba", lambda: phase_serve_jamba(torch, device)),
         ("serve-rwkv6", lambda: phase_serve_rwkv(torch, device)),
+        ("serve-seamless", lambda: phase_serve_seamless(torch, device)),
+        ("serve-internvl2", lambda: phase_serve_internvl2(torch, device)),
         ("train", lambda: phase_train(torch, device)),
     ]
     counts, seconds = {}, {}
@@ -2188,7 +2572,7 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
         if name in ("serve", "serve-olmoe", "serve-jamba", "serve-rwkv6",
-                    "train"):
+                    "serve-seamless", "serve-internvl2", "train"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)
@@ -2245,6 +2629,16 @@ def main() -> int:
                         "library_ms_bf16": kb.get("library_ms"),
                         "bound_ms_bf16": kb.get("bound_ms"),
                         "max_abs_err_bf16": kb.get("max_abs_err")})
+        if name == "flash_attention":
+            # the non-causal form at the encoder's serve shape
+            for dn in ("f32", "bf16"):
+                kf = kern.get(f"flash-full-serve-{dn}", {})
+                row.update({f"{key}_noncausal_{dn}": kf.get(src) for key, src
+                            in (("ms", "kernel_ms"),
+                                ("library_ms", "library_ms"),
+                                ("plain_ms", "plain_ms"),
+                                ("bound_ms", "bound_ms"),
+                                ("max_abs_err", "max_abs_err"))})
         kernels.append(row)
     record["kernels"] = kernels
     record["seconds"] = seconds

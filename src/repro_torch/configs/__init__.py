@@ -1,12 +1,12 @@
 """Architecture configs the port runs (``--arch <id>``).
 
-Copies of ``repro.configs``' four dense configs (trained and served), of
-``olmoe_1b_7b`` (MoE, served), of ``rwkv6_1b6`` (trained) and of
-``jamba_1_5_large`` (Mamba + attention + MoE, served): each
-module defines ``ARCH`` (the published config) and ``reduced()`` (a
-small same-family config for CPU tests).
-The other ids of the reference exist there and raise here, naming the
-ROADMAP slice that brings them.
+Copies of ``repro.configs``' four dense configs, of ``olmoe_1b_7b``
+(MoE), ``rwkv6_1b6`` (RWKV6), ``jamba_1_5_large`` (Mamba + attention +
+MoE), ``internvl2_76b`` (a VLM backbone behind a stubbed frontend) and
+``seamless_m4t_v2`` (encoder-decoder): each module defines ``ARCH`` (the
+published config) and ``reduced()`` (a small same-family config for CPU
+tests).  The one other id of the reference exists there and raises here,
+naming the ROADMAP slice that brings it.
 """
 
 from __future__ import annotations
@@ -14,7 +14,8 @@ from __future__ import annotations
 import importlib
 
 ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b",
-             "olmoe_1b_7b", "rwkv6_1b6", "jamba_1_5_large"]
+             "olmoe_1b_7b", "rwkv6_1b6", "jamba_1_5_large", "internvl2_76b",
+             "seamless_m4t_v2"]
 
 # assignment ids -> module names (the reference's table)
 ALIASES = {
@@ -34,8 +35,6 @@ ALIASES = {
 LATER = {
     "phi3_5_moe_42b": "multi-GPU plans (its 42B parameters do not fit "
                       "one card)",
-    "internvl2_76b": "the VLM / encoder-decoder slice",
-    "seamless_m4t_v2": "the VLM / encoder-decoder slice",
 }
 
 

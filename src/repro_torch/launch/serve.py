@@ -10,6 +10,10 @@
         --width 0 --depth 2 --vocab 0 --experts 0
     python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --width 0 --depth 0 --vocab 0
+    python -m repro_torch.launch.serve --arch seamless-m4t-large-v2 \
+        --width 0 --depth 0 --vocab 0 --batch 8 --prompt-len 512
+    python -m repro_torch.launch.serve --arch internvl2-76b \
+        --width 0 --depth 2 --vocab 0
 
 ``--width/--depth/--vocab/--experts`` shrink the config (0 keeps the
 published value).  The defaults keep the published width, at which the
@@ -23,7 +27,12 @@ of the model at its published width on one card.
 ``--kv-block-size 0`` serves from dense per-slot KV rows; a stack
 without attention (rwkv6) always does, and ``--kv-quant`` is inert there.
 Its carried-state WKV6 recurrence runs the plain version on the card too,
-as the reference's does.  Weights are random,
+as the reference's does.  A VLM (internvl2) is served on text prompts
+through the engine, as the reference's is.  The encoder-decoder
+(seamless) keeps the reference's static lockstep loop: ``--batch`` rows of
+the seq2seq dataset (``--prompt-len`` split evenly between encoder frames
+and decoder tokens) are prefilled once over dense rows, then decoded
+``--gen`` tokens with one scalar position.  Weights are random,
 drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
 a numpy generator with the same seed.  ``--device cpu`` runs the plain
 PyTorch versions on the CPU; without it the command needs a GPU.
@@ -40,7 +49,9 @@ import torch
 from repro_torch import configs
 from repro_torch.device import resolve_device
 from repro_torch.launch.train import reduced_arch, require_kernel_shapes
-from repro_torch.models import lm
+from repro_torch.data import make_dataset
+from repro_torch.models import init_params, model_module
+from repro_torch.models.arch import ShapeSpec
 from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
 
 
@@ -93,6 +104,95 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def lockstep(params, arch, batch: dict, gen: int, *, feed=None) -> dict:
+    """The static lockstep loop over dense rows: one prefill of ``batch``
+    (an encoder-decoder's frames and tokens, or a VLM's frontend and
+    text), then ``gen - 1`` greedy decode steps at one scalar position
+    (step i fed column i of ``feed`` (B, gen - 1) instead, where given).
+    Returns the tokens (B, gen) on the host, every call's last-position
+    logits on the device, and the prefill's and the steps' seconds."""
+    mod = model_module(arch)
+    device = batch["tokens"].device
+    dtype = params["embed"]["table"].dtype
+    B, pos = batch["tokens"].shape
+    kw = {}
+    if arch.enc_layers:
+        kw["enc_len"] = batch["frames"].shape[1]
+    elif arch.frontend and "frontend" in batch:
+        pos += batch["frontend"].shape[1]
+
+    def next_token(logits):
+        return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+    with torch.no_grad():
+        cache = mod.init_cache(arch, B, pos + gen, dtype, device=device, **kw)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = mod.prefill(params, batch, cache, arch)
+        tok = next_token(logits)
+        _sync(device)
+        t_prefill = time.perf_counter() - t0
+        out, toks = [logits[:, -1]], [tok]
+        t0 = time.perf_counter()
+        for i in range(gen - 1):
+            if feed is not None:
+                tok = feed[:, i:i + 1].to(device)
+            logits, cache = mod.decode_step(params, tok, cache, pos + i,
+                                            arch)
+            tok = next_token(logits)
+            out.append(logits[:, -1])
+            toks.append(tok)
+        _sync(device)
+        t_decode = time.perf_counter() - t0
+    return {"tokens": torch.cat(toks, dim=1).cpu(), "logits": out,
+            "prefill_s": t_prefill, "decode_s": t_decode}
+
+
+def encdec_inputs(args, arch, device, dtype):
+    """The weights (seeded by ``--seed``) and the batch (``--batch`` rows
+    of the seq2seq dataset, ``--prompt-len`` split evenly between encoder
+    frames and decoder tokens) that :func:`serve_encdec` serves."""
+    params = init_params(arch, dtype, generator=torch.Generator(
+        device=device).manual_seed(args.seed), device=device)
+    ds = make_dataset(arch, ShapeSpec("serve", args.prompt_len, args.batch,
+                                      "prefill"), seed=args.seed)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in ds.batch_at(0).items()}
+    return params, batch
+
+
+def serve_encdec(args, arch, device, dtype) -> dict:
+    """The reference's lockstep encoder-decoder path (:func:`lockstep`):
+    prefill ``--batch`` rows once over a dense cache with the memory, then
+    decode with a scalar position.  A prefill and one step run first on a
+    throwaway cache, before anything is timed."""
+    params, batch = encdec_inputs(args, arch, device, dtype)
+    t0 = time.perf_counter()
+    lockstep(params, arch, batch, 2)
+    t_warm = time.perf_counter() - t0
+    out = lockstep(params, arch, batch, args.gen)
+    t_prefill, t_decode = out["prefill_s"], out["decode_s"]
+    pos = batch["tokens"].shape[1]
+    gen = out["tokens"]
+    tok_s = args.batch * (args.gen - 1) / max(t_decode, 1e-9)
+    print(f"arch={arch.name} batch={args.batch} prompt={pos} "
+          f"gen={args.gen} mode=static(encdec) dtype={args.dtype}")
+    print(f"warmup: {t_warm:.2f} s (excluded from the rates below)")
+    print(f"prefill: {t_prefill * 1e3:.1f} ms "
+          f"({args.batch * pos / max(t_prefill, 1e-9):.0f} tok/s)")
+    print(f"decode:  {t_decode * 1e3:.1f} ms ({tok_s:.0f} tok/s)")
+    print("sample generations (token ids):")
+    for row in gen[:2]:
+        print("  ", row[:24].tolist())
+    return {"tokens": gen, "prefill_s": t_prefill, "decode_s": t_decode,
+            "decode_tok_s": tok_s}
+
+
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
     device = resolve_device(args.device)
@@ -100,13 +200,15 @@ def main(argv=None) -> dict:
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
     require_kernel_shapes(arch, device)
+    if arch.enc_layers:
+        return serve_encdec(args, arch, device, dtype)
     n_requests = args.requests or 2 * args.batch
     max_len = args.prompt_len + args.gen
     chunk = args.prefill_chunk_tokens
     if chunk < 0:
         chunk = 2 * args.kv_block_size if args.kv_block_size else 256
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = lm.init_lm(arch, dtype, generator=gen, device=device)
+    params = init_params(arch, dtype, generator=gen, device=device)
     requests = make_requests(arch.vocab, n_requests, args.prompt_len,
                              args.gen, args.seed)
     mode = "static" if args.no_continuous else "continuous"

@@ -10,10 +10,14 @@ the restored step).
         --steps 200 --batch 8 --seq 256 --depth 8
 
 Reduced dims (``--width/--depth/--vocab``) scale the assigned arch down;
-omit them for the published config.  On the card the width must leave
-the heads at a size the kernels take (head dim 64 or 128: the published
-width, ``--width 0``); a width that does not is refused before anything
-is built.  The flags and defaults are the
+omit them for the published config.  The encoder-decoder
+(``--arch seamless-m4t-large-v2``; ``--depth`` sets both stacks) trains
+on frames + tokens, a VLM (``--arch internvl2-76b``) on frontend
+embeddings + tokens, each as the reference's dataset gives them
+(``--seq`` counts both parts; a VLM's frontend takes 256 of it).  On the
+card the width must leave the heads at a size the kernels take (head dim
+64 or 128: the published width, ``--width 0``); a width that does not is
+refused before anything is built.  The flags and defaults are the
 reference's, plus ``--device`` (``cpu`` runs the plain PyTorch versions
 on the CPU; without it the command needs a GPU).  The default checkpoint
 directory is ``repro_ckpt`` under the temporary directory (``TMPDIR``).
@@ -43,7 +47,7 @@ from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
-from repro_torch.models import lm
+from repro_torch.models import init_params
 from repro_torch.models.arch import ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.train import TrainConfig, make_train_step
@@ -81,7 +85,8 @@ def reduced_arch(arch, width, depth, vocab, experts=0):
 def kernel_shape_faults(arch) -> list[str]:
     """What of ``arch`` the card's kernels do not take (``ops.supports_*``
     at one token of its attention, WKV6 and scan layers); empty when every
-    such op of its stack can launch its kernel."""
+    such op of its stack can launch its kernel.  An encoder-decoder's
+    encoder has the decoder's heads, so its attention check covers both."""
     kinds = {l.mixer for l in arch.pattern}
     faults = []
     if "attn" in kinds:
@@ -202,9 +207,10 @@ def main(argv=None) -> list[dict]:
     ds = make_dataset(arch, shape)
 
     ckpt = CheckpointManager(args.ckpt_dir)
-    params = lm.init_lm(arch, torch.float32,
-                        generator=torch.Generator(device=device)
-                        .manual_seed(0), device=device)
+    params = init_params(
+        arch, torch.float32,
+        generator=torch.Generator(device=device).manual_seed(0),
+        device=device)
     opt_state = adamw_init(params)
     start_step = 0
     if args.resume:
@@ -218,8 +224,8 @@ def main(argv=None) -> list[dict]:
     history = []
     t0 = time.time()
     for step in range(start_step, args.steps):
-        batch = {"tokens": torch.as_tensor(ds.batch_at(step)["tokens"],
-                                           device=device)}
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in ds.batch_at(step).items()}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}

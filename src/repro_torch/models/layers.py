@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.kernels.mha_chunked import mha_chunked
 from repro_torch.kernels.quant import quantize_kv
 
 
@@ -113,15 +114,25 @@ def _scatter_rows(pool, phys, rows):
     pool.view(NB * bs, *pool.shape[2:])[phys] = rows
 
 
+def _chunked(q, k, v, G: int, **kw):
+    """The chunked core over K/V repeated ``G`` times over heads."""
+    if G > 1:
+        k = k.repeat_interleave(G, dim=2)
+        v = v.repeat_interleave(G, dim=2)
+    return mha_chunked(q, k, v, **kw)
+
+
 def attention(p: dict, x, arch, *, positions, causal: bool = True,
               kv_cache: dict | None = None, cache_pos=None,
-              block_tables=None, q_lens=None):
+              block_tables=None, q_lens=None, kv_override=None,
+              use_rope: bool = True):
     """GQA attention block (qkv projection + core).
 
-    Four forms, as in the reference:
+    Four forms through the kernels, as in the reference:
 
     * no cache, or a prefill (scalar ``cache_pos == 0``, S > 1) into a
-      dense cache row: causal self-attention through ``flash_attention``;
+      dense cache row: self-attention through ``flash_attention``, causal
+      or (an encoder's, without a cache) full;
     * dense single-token decode: ``kv_cache`` leaves are per-slot rows
       (B, max_len, KH, hd); row b's token is written at ``cache_pos[b]``
       (or at the scalar ``cache_pos`` for every row) and attended through
@@ -136,8 +147,13 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
       padding writes are dropped (dense) or parked in the trash block 0
       (paged).
 
-    Continuing a dense cache mid-sequence (scalar ``cache_pos > 0`` with
-    S > 1; no engine path issues it) raises ``NotImplementedError``.
+    Two forms go through the positions-aware chunked core
+    (:func:`~repro_torch.kernels.mha_chunked.mha_chunked`), as in the
+    reference: cross-attention, where ``kv_override=(k, v, kv_positions)``
+    gives K and V (no projection, bias, norm or rope on them; q gets rope
+    only with ``use_rope``); and a dense cache continued mid-sequence
+    (scalar ``cache_pos`` other than the literal 0, S > 1), whose S rows
+    are written at ``cache_pos`` and attend causally over the whole row.
     Returns (out (B, S, H, hd), cache).
     """
     B, S, _ = x.shape
@@ -145,17 +161,26 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
     G = H // KH
 
     q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"]
-        k, v = k + p["bk"], v + p["bv"]
-    if "k_norm" in p:
-        k = rms_norm(k, p["k_norm"])
+    if kv_override is None:
+        k = _proj(x, p["wk"])
+        v = _proj(x, p["wv"])
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        if "k_norm" in p:
+            k = rms_norm(k, p["k_norm"])
+        if use_rope:
+            k = rope(k, positions, arch.rope_theta)
+    else:
+        k, v, kv_positions = kv_override
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
-    k = rope(k, positions, arch.rope_theta)
-    q = rope(q, positions, arch.rope_theta)
+    if use_rope:
+        q = rope(q, positions, arch.rope_theta)
+    if kv_override is not None:
+        return _chunked(q, k, v, G, causal=causal, q_positions=positions,
+                        kv_positions=kv_positions), kv_cache
 
     per_slot = torch.is_tensor(cache_pos) and cache_pos.ndim == 1
 
@@ -256,13 +281,21 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
         return o.reshape(B, 1, H, hd), kv_cache
 
     if kv_cache is not None:
-        if per_slot or not (isinstance(cache_pos, int) and cache_pos == 0):
-            raise NotImplementedError(
-                "continuing a dense cache mid-sequence (cache_pos > 0 with "
-                "S > 1) arrives with the mid-sequence dense continuation "
-                "item (ROADMAP.md, A); the engine's dense path prefills "
-                "from 0 and decodes one token at a time")
+        if per_slot:
+            raise ValueError(
+                "per-slot cache_pos requires single-token decode "
+                f"(got S={S})")
         ck, cv = kv_cache["k"], kv_cache["v"]
+        if not (isinstance(cache_pos, int) and cache_pos == 0):
+            # mid-sequence: query row i sits at cache_pos + i, which the
+            # blocked kernels' 0-based causal mask cannot express
+            cp = int(cache_pos)
+            ck[:, cp:cp + S] = k.to(ck.dtype)
+            cv[:, cp:cp + S] = v.to(cv.dtype)
+            return _chunked(q, ck, cv, G, causal=True, q_positions=positions,
+                            kv_positions=torch.arange(ck.shape[1],
+                                                      device=x.device)), \
+                kv_cache
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)
         k, v = ck, cv

@@ -23,8 +23,13 @@ Entry points:
 
 ``plan`` (a searched ``ModelPlan`` in the reference) only places
 tensors across devices; on one device it changes no arithmetic, and the
-port accepts it for signature parity.  Modality frontends raise
-``NotImplementedError`` naming the slice that brings them.
+port accepts it for signature parity.  A frontend arch (a VLM) takes
+``batch["frontend"]`` (B, F, D), stubbed patch embeddings that
+``hidden_states`` and ``prefill`` put before the text, as the reference
+does; its loss scores the text segment alone.  An encoder-decoder runs
+through :mod:`repro_torch.models.encdec`, which reuses this module's
+stack with cross-attention (``init_stack(..., cross_attn=True)``,
+``run_stack(..., memory=...)``); the decoder-only entry points refuse it.
 
 Training rematerializes each unit (``remat``) under one of the
 reference's policies (:data:`REMAT_POLICIES`): recompute everything
@@ -49,12 +54,12 @@ from .arch import ArchConfig
 
 
 def check_arch(arch: ArchConfig) -> None:
-    """Raise for anything beyond the dense, MoE, RWKV6 and Mamba-hybrid
-    decoder-only LMs."""
-    if arch.frontend or arch.enc_layers:
-        raise NotImplementedError(
-            f"{arch.name}: frontends and encoder-decoder models arrive "
-            f"with the VLM / encoder-decoder slice (ROADMAP.md)")
+    """Raise for an encoder-decoder, which the decoder-only entry points
+    do not run."""
+    if arch.enc_layers:
+        raise ValueError(
+            f"{arch.name} is an encoder-decoder: run it through "
+            f"repro_torch.models.encdec (repro_torch.models.model_module)")
 
 
 def tree_map(fn, tree):
@@ -76,16 +81,13 @@ def tree_leaves(tree, path=()):
 # --------------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------------- #
-def init_lm(arch: ArchConfig, dtype=torch.float32, *,
-            generator: torch.Generator, device=None) -> dict:
-    """Random weights from ``generator`` (on ``device``), stacked over
-    units.  The numbers differ from the reference's ``jax.random`` init
-    from the same seed; parity tests move the reference's weights across
-    with :mod:`repro_torch.bridge` instead.  ``device=None`` means
-    ``cuda`` (see :func:`repro_torch.device.resolve_device`)."""
-    check_arch(arch)
-    device = resolve_device(device)
-    n = (arch.n_units,)
+def init_stack(arch: ArchConfig, n_units: int, dtype=torch.float32, *,
+               cross_attn: bool = False, generator: torch.Generator,
+               device) -> dict:
+    """One pattern unit's layers with every tensor stacked over ``n_units``
+    (the reference's ``init_stack``); ``cross_attn`` gives each layer a
+    cross-attention block ``xattn`` and its norm ``ln_x``."""
+    n = (n_units,)
     kw = dict(generator=generator, device=device)
     unit = {}
     for j, spec in enumerate(arch.pattern):
@@ -103,10 +105,27 @@ def init_lm(arch: ArchConfig, dtype=torch.float32, *,
                 lp["moe"] = M.init_moe(arch, dtype, lead=n, **kw)
             else:
                 lp["mlp"] = L.init_mlp(arch, dtype, lead=n, **kw)
+        if cross_attn:
+            lp["ln_x"] = L.init_norm(arch, dtype, lead=n, device=device)
+            lp["xattn"] = L.init_attention(arch, dtype, lead=n, **kw)
         unit[f"l{j}"] = lp
+    return unit
+
+
+def init_lm(arch: ArchConfig, dtype=torch.float32, *,
+            generator: torch.Generator, device=None) -> dict:
+    """Random weights from ``generator`` (on ``device``), stacked over
+    units.  The numbers differ from the reference's ``jax.random`` init
+    from the same seed; parity tests move the reference's weights across
+    with :mod:`repro_torch.bridge` instead.  ``device=None`` means
+    ``cuda`` (see :func:`repro_torch.device.resolve_device`)."""
+    check_arch(arch)
+    device = resolve_device(device)
+    kw = dict(generator=generator, device=device)
+    stack = init_stack(arch, arch.n_units, dtype, **kw)
     return {
         "embed": L.init_embed(arch, dtype, **kw),
-        "stack": unit,
+        "stack": stack,
         "final_norm": L.init_norm(arch, dtype, device=device),
         "lm_head": L.init_lm_head(arch, dtype, **kw),
     }
@@ -121,11 +140,29 @@ def _store(leaves: dict, new: dict) -> None:
         leaves[name].copy_(t)
 
 
+def _cross_attend(h, lp, arch, positions, memory):
+    """Cross-attention after a layer's mixer: ``ln_x``, K/V projected from
+    the memory ``(mem_h, mpos)`` with no bias, norm or rope, the
+    non-causal chunked core, the output projection and the residual."""
+    if memory is None:
+        return h
+    mem_h, mpos = memory
+    xp = lp["xattn"]
+    mk, mv = L._proj(mem_h, xp["wk"]), L._proj(mem_h, xp["wv"])
+    a, _ = L.attention(xp, L.apply_norm(lp["ln_x"], h), arch,
+                       positions=positions, causal=False,
+                       kv_override=(mk, mv, mpos), use_rope=False)
+    return h + L.attention_out(xp, a)
+
+
 def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
                  causal=True, cache=None, cache_pos=None, block_tables=None,
-                 q_lens=None, time_chunk=64):
+                 q_lens=None, memory=None, time_chunk=64):
     """Returns (h, aux_loss, new_cache) for one pattern unit; ``aux_loss``
-    sums the unit's MoE load-balancing losses (0 without MoE layers)."""
+    sums the unit's MoE load-balancing losses (0 without MoE layers).
+    ``memory=(mem_h (B, S_enc, D), mpos (S_enc,))`` adds each attention
+    or Mamba layer's cross-attention after its mixer (an encoder-decoder's
+    decoder; no configuration puts it after an RWKV6 time mix)."""
     new_cache: dict = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, spec in enumerate(arch.pattern):
@@ -182,6 +219,7 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
             h = h + L.attention_out(lp["attn"], a)
             if kvc is not None:
                 nc["kv"] = kvc
+        h = _cross_attend(h, lp, arch, positions, memory)
         hn = L.apply_norm(lp["ln2"], h)
         if spec.ffn == "moe":
             if cache is None:
@@ -229,7 +267,8 @@ def remat_context(policy: str):
 
 def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
               cache=None, cache_pos=None, block_tables=None, q_lens=None,
-              time_chunk=64, remat=False, remat_policy="nothing"):
+              memory=None, time_chunk=64, remat=False,
+              remat_policy="nothing"):
     """Walk the units in order; returns (h, aux_loss, cache).  Unit u's
     parameters and cache are the views ``leaf[u]`` of the stacked trees,
     so cache writes land in the stacked cache itself.
@@ -238,7 +277,9 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
     ``torch.utils.checkpoint``: the backward pass keeps each unit's input
     and what ``remat_policy`` saves (:data:`REMAT_POLICIES`), and
     recomputes the rest.  The inner per-mixer checkpoints save nothing,
-    as in the reference."""
+    as in the reference.  ``memory`` (see :func:`unit_forward`) goes to
+    the checkpointed function as an input, so its gradient flows through
+    every unit's recompute."""
     context_fn = remat_context(remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(arch.n_units):
@@ -250,11 +291,12 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
                   q_lens=q_lens, time_chunk=time_chunk)
         if remat and cache is None:
             h, a = checkpoint(
-                lambda h_, p_: unit_forward(h_, p_, arch, **kw)[:2],
-                h, unit_params, use_reentrant=False,
+                lambda h_, p_, m_: unit_forward(h_, p_, arch, memory=m_,
+                                                **kw)[:2],
+                h, unit_params, memory, use_reentrant=False,
                 preserve_rng_state=False, context_fn=context_fn)
         else:
-            h, a, _ = unit_forward(h, unit_params, arch, **kw)
+            h, a, _ = unit_forward(h, unit_params, arch, memory=memory, **kw)
         aux = aux + a
     return h, aux, cache
 
@@ -265,12 +307,11 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
 def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
                   q_chunk=512, time_chunk=64, remat=True,
                   remat_policy="nothing"):
-    """Embed + layer stack + final norm -> ((B, S, D), aux_loss).
-    ``q_chunk`` is accepted for signature parity (the attention kernel
-    does not chunk queries)."""
+    """Embed (after ``batch["frontend"]`` for a frontend arch) + layer
+    stack + final norm -> ((B, S, D), aux_loss).  ``q_chunk`` is accepted
+    for signature parity (the attention kernel does not chunk queries)."""
     check_arch(arch)
-    tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens)
+    h = _embed_inputs(params, batch, arch)
     positions = torch.arange(h.shape[1], device=h.device)
     h, aux, _ = run_stack(h, params["stack"], arch, positions=positions,
                           causal=True, time_chunk=time_chunk, remat=remat,
@@ -278,9 +319,20 @@ def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
     return L.apply_norm(params["final_norm"], h), aux
 
 
+def _embed_inputs(params, batch: dict, arch: ArchConfig):
+    """The token embeddings, after the frontend's (B, F, D) embeddings
+    (cast to their dtype) where the arch has a frontend and the batch
+    carries one."""
+    h = L.embed(params["embed"], batch["tokens"])
+    if arch.frontend and "frontend" in batch:
+        h = torch.cat([batch["frontend"].to(h.dtype), h], dim=1)
+    return h
+
+
 def forward(params, batch: dict, arch: ArchConfig, plan=None, *,
             q_chunk=512, time_chunk=64, remat=True, remat_policy="nothing"):
-    """batch: {"tokens": (B, S)} -> (logits (B, S, V), aux_loss)."""
+    """batch: {"tokens": (B, S_text) [, "frontend": (B, F, D)]} -> (logits
+    (B, S, V), aux_loss), S = F + S_text with a frontend."""
     h, aux = hidden_states(params, batch, arch, plan, q_chunk=q_chunk,
                            time_chunk=time_chunk, remat=remat,
                            remat_policy=remat_policy)
@@ -335,11 +387,13 @@ def loss_fn(params, batch: dict, arch: ArchConfig, plan=None, *,
             aux_coef: float = 0.01, q_chunk=512, time_chunk=64, remat=True,
             loss_chunk=512, remat_policy="nothing"):
     """Next-token loss of ``batch["tokens"]`` (B, S); returns (loss,
-    {"loss", "nll", "accuracy", "aux"})."""
+    {"loss", "nll", "accuracy", "aux"}).  Frontend positions carry no
+    labels: only the text segment is scored."""
     h, aux = hidden_states(params, batch, arch, plan, q_chunk=q_chunk,
                            time_chunk=time_chunk, remat=remat,
                            remat_policy=remat_policy)
     tokens = batch["tokens"]
+    h = h[:, -tokens.shape[1]:]
     loss, metrics = chunked_lm_loss(h[:, :-1, :], tokens[:, 1:], params,
                                     arch, plan, chunk=loss_chunk)
     loss = loss + aux_coef * aux
@@ -379,6 +433,13 @@ def init_cache(arch: ArchConfig, batch: int, max_len: int,
     """KV rows ``(n_units, batch, max_len, KH, hd)`` for attention layers,
     slot-dense state for Mamba and RWKV6 layers."""
     check_arch(arch)
+    return init_stack_cache(arch, batch, max_len, dtype, device=device)
+
+
+def init_stack_cache(arch: ArchConfig, batch: int, max_len: int,
+                     dtype=torch.bfloat16, *, device=None) -> dict:
+    """:func:`init_cache` of the arch's stack alone, whatever else the
+    model holds (``encdec`` keeps its decoder's rows in one)."""
     device = resolve_device(device)
     shape = (arch.n_units, batch, max_len, arch.n_kv_heads, arch.hd)
     cache = {}
@@ -425,12 +486,12 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
 
 
 def prefill(params, batch: dict, cache: dict, arch: ArchConfig):
-    """Process the prompt (``batch["tokens"]`` (B, S)), filling ``cache``
-    from position 0; returns (last-position logits (B, 1, V), cache)."""
+    """Process the prompt (``batch["tokens"]`` (B, S), after
+    ``batch["frontend"]`` for a frontend arch), filling ``cache`` from
+    position 0; returns (last-position logits (B, 1, V), cache)."""
     check_arch(arch)
-    tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h = _embed_inputs(params, batch, arch)
+    positions = torch.arange(h.shape[1], device=h.device)
     h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
                          causal=True, cache=cache, cache_pos=0)
     return _head(params, h[:, -1:, :], arch), cache

@@ -22,6 +22,9 @@
   ``kv_block_size`` says, and ``kv_quant`` is inert there.
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
+* A frontend arch (a VLM) is served on text prompts alone: the engine
+  passes no ``frontend``, as the reference's does.  An encoder-decoder
+  raises (``launch/serve.py`` serves it in lockstep).
 
 The cache is updated in place (the reference donated it to jit).
 """
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.quant import quantize_kv
-from repro_torch.models import lm
+from repro_torch.models import is_encdec, lm
 from repro_torch.models.arch import ArchConfig
 
 from .config import ServeConfig
@@ -118,7 +121,10 @@ class ServeEngine:
     """
 
     def __init__(self, params, arch: ArchConfig, config: ServeConfig):
-        lm.check_arch(arch)
+        if is_encdec(arch):
+            raise NotImplementedError(
+                "ServeEngine covers decoder-only LMs; encoder-decoder "
+                "serving uses the static driver path")
         self.params = params
         self.arch = arch
         self.config = config

@@ -1,7 +1,8 @@
 """Serving step builders: the counterpart of ``repro.serve.fns``.
 
 ``make_serve_fns`` returns ``(prefill, step)`` over the port's dense,
-MoE, RWKV6 and Mamba-hybrid LMs.
+MoE, RWKV6, Mamba-hybrid and VLM LMs, and over the encoder-decoder, whose
+step is single-token decode only (as in the reference).
 There is no jit and no plan: PyTorch runs eagerly on one device, and the
 cache is updated in place where the reference donated it to jit.
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
 
 
@@ -44,11 +45,26 @@ def make_serve_fns(arch: ArchConfig):
     pays for (B - 1) x T padded positions.  The scheduler hands a step's
     whole chunk budget to one slot, so exactly one row has
     ``q_lens == T`` and ``argmax(q_lens)`` finds it.
+
+    An encoder-decoder's ``prefill`` encodes ``batch["frames"]`` and
+    fills a ``{"dec", "memory"}`` cache (``encdec.init_cache``); its
+    ``step`` is ``encdec.decode_step`` and raises on ``q_lens`` or
+    ``block_tables``.
     """
-    lm.check_arch(arch)
+    mod = model_module(arch)
 
     def prefill(params, batch, cache):
-        return lm.prefill(params, batch, cache, arch)
+        return mod.prefill(params, batch, cache, arch)
+
+    if mod is not lm:
+        def decode(params, tokens, cache, pos, q_lens=None,
+                   block_tables=None):
+            if q_lens is not None or block_tables is not None:
+                raise NotImplementedError(
+                    f"{arch.name}: mixed-step serving (q_lens/block_tables) "
+                    "is decoder-only for now")
+            return mod.decode_step(params, tokens, cache, pos, arch)
+        return prefill, decode
 
     def _model_step(params, tokens, cache, pos, q_lens, block_tables):
         return lm.step(params, tokens, cache, pos, arch, q_lens=q_lens,

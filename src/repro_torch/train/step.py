@@ -10,7 +10,8 @@ opt_state, metrics)`` with:
   * AdamW with float32 moments, applied in place (the reference donates
     ``params`` and ``opt_state`` to its jitted step).
 
-Gradients come from ``torch.autograd.grad`` of the port's ``loss_fn``.
+Gradients come from ``torch.autograd.grad`` of the port's ``loss_fn``
+(``lm``'s, or ``encdec``'s for an encoder-decoder).
 On the card the attention and WKV6 kernels run forward and their
 ``autograd.Function``s differentiate the plain versions, as the
 reference's ``with_reference_vjp`` does.
@@ -22,13 +23,17 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.models import lm
+from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
 from repro_torch.optim import AdamWConfig, adamw_update
 
 
 @dataclass(frozen=True)
 class TrainConfig:
+    """The train step's settings.  ``time_chunk``, ``aux_coef`` and
+    ``remat_policy`` reach the decoder-only ``lm`` alone: the
+    encoder-decoder's loss takes none of them and, under ``remat``,
+    recomputes every unit whole, as the reference's does."""
     optimizer: AdamWConfig = field(default_factory=AdamWConfig)
     microbatches: int = 1
     q_chunk: int = 512
@@ -54,19 +59,19 @@ def make_train_step(arch: ArchConfig, plan=None,
                     cfg: TrainConfig | None = None):
     cfg = cfg or TrainConfig()
     _check_unstaged(plan)
-    lm.check_arch(arch)
     if cfg.microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {cfg.microbatches}")
+    mod = model_module(arch)
+    kw = dict(q_chunk=cfg.q_chunk, remat=cfg.remat, loss_chunk=cfg.loss_chunk)
+    if mod is lm:       # the encoder-decoder remats every unit whole
+        kw.update(time_chunk=cfg.time_chunk, aux_coef=cfg.aux_coef,
+                  remat_policy=cfg.remat_policy)
 
     def value_and_grad(params, batch):
         """(metrics, gradient leaves in ``lm.tree_leaves`` order)."""
         tree = lm.tree_map(lambda t: t.detach().requires_grad_(), params)
         leaves = [t for _, t in lm.tree_leaves(tree)]
-        loss, metrics = lm.loss_fn(
-            tree, batch, arch, plan, aux_coef=cfg.aux_coef,
-            q_chunk=cfg.q_chunk, time_chunk=cfg.time_chunk,
-            remat=cfg.remat, loss_chunk=cfg.loss_chunk,
-            remat_policy=cfg.remat_policy)
+        loss, metrics = mod.loss_fn(tree, batch, arch, plan, **kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a leaf the loss does not reach gets zeros, as under jax.grad
         grads = [torch.zeros_like(t) if g is None else g

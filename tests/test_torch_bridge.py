@@ -126,3 +126,31 @@ def test_rwkv_state_caches_round_trip(dtype):
         assert jc["l0"]["tmix_state"]["wkv"].dtype == np.float32
         assert jc["l0"]["cmix_state"]["shift"].dtype == np.dtype(dtype)
         _assert_same(params_to_numpy(params_from_jax(jc, "cpu")), jc)
+
+
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16],
+                         ids=["f32", "bf16"])
+def test_encdec_params_and_cache_round_trip(dtype):
+    """An ``init_encdec`` tree (encoder stack, cross-attention in the
+    decoder) and a filled ``{"dec", "memory"}`` cache move across whole,
+    leaf by leaf, with the port's own trees' paths and shapes."""
+    from repro.models import encdec as jencdec
+    from repro_torch.models import encdec
+    arch = C.reduced("seamless_m4t_v2")
+    src = jax.tree.map(np.asarray,
+                       jencdec.init_encdec(jax.random.PRNGKey(0), arch, dtype))
+    tp = params_from_jax(src, "cpu")
+    _assert_same(params_to_numpy(tp), src)
+    tdt = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    own = params_to_numpy(encdec.init_encdec(
+        arch, tdt, generator=torch.Generator().manual_seed(0), device="cpu"))
+    assert ({k: (v.shape, v.dtype) for k, v in _flat(own)}
+            == {k: (v.shape, v.dtype) for k, v in _flat(src)})
+    rng = np.random.default_rng(1)
+    cache = jax.tree.map(
+        lambda a: (rng.standard_normal(a.shape) * 3).astype(a.dtype),
+        jax.tree.map(np.asarray, jencdec.init_cache(arch, 2, 8, dtype,
+                                                    enc_len=5)))
+    tc = params_from_jax(cache, "cpu")
+    assert tuple(tc["memory"].shape) == (2, 5, arch.d_model)
+    _assert_same(params_to_numpy(tc), cache)

@@ -236,6 +236,25 @@ def test_cuda_flash_matches_plain(cuda, dt, causal, S, T, D):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,S,D", [(8, 16, 256, 64), (8, 16, 128, 64),
+                                     (2, 16, 300, 64), (2, 8, 300, 128)])
+def test_cuda_flash_full_at_the_encoder_shapes(cuda, dt, B, H, S, D):
+    """The non-causal form as an encoder runs it: S = T, every head its own
+    KV head (seamless' serve and train shapes), and S = T = 300, off the
+    tile edges."""
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device=cuda).to(dt)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=False)
+    want = ref.attention_ref(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    tol = CUDA_TOL[dt]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
 # the bfloat16 kernel takes one-warpgroup CTAs on small grids, two
 # warpgroups (two query heads of one KV group) on large ones with an even
 # group, and one-warpgroup CTAs two to an SM on large ones with an odd
@@ -1032,6 +1051,52 @@ def test_cuda_mamba_scan_refuses_what_it_does_not_take(cuda):
                        .transpose(0, 2), A, D)
     with pytest.raises(ValueError, match="initial_state"):
         ops.mamba_scan(dt_, Bm, Cm, x, A, D, initial_state=h0.bfloat16())
+
+
+@pytest.mark.cuda
+def test_cuda_encdec_matches_the_cpu(cuda):
+    """A small encoder-decoder (2 + 2 layers, d 256, 4 heads of 64) on the
+    card and on the CPU from the same weights: the training forward's
+    logits and gradients' flash launches (the encoder's non-causal, the
+    decoder's causal), then a prefill and four lockstep decode steps with
+    a scalar position, logits within 1e-4."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import encdec, lm
+    arch = dataclasses.replace(configs.get("seamless-m4t-large-v2"),
+                               n_layers=2, enc_layers=2, d_model=256,
+                               n_heads=4, n_kv_heads=4, d_ff=512, vocab=512)
+    params = encdec.init_encdec(arch, generator=torch.Generator()
+                                .manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    batch = {"frames": torch.randn(2, 16, 256, generator=g),
+             "tokens": torch.randint(0, 512, (2, 16), generator=g)}
+    toks = torch.randint(0, 512, (4, 2, 1), generator=g)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = lm.tree_map(lambda t: t.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = encdec.forward(p, b, arch, remat=False)
+            counts = dict(ops.launch_counts())
+            cache = encdec.init_cache(arch, 2, 24, torch.float32,
+                                      enc_len=16, device=dev)
+            lg, cache = encdec.prefill(p, b, cache, arch)
+            steps = [lg]
+            ops.reset_launch_counts()
+            for i, t in enumerate(toks):
+                lg, cache = encdec.decode_step(p, t.to(dev), cache, 16 + i,
+                                               arch)
+                steps.append(lg)
+        out[dev.type] = (logits.cpu(), [s.cpu() for s in steps], counts,
+                         dict(ops.launch_counts()))
+    (gl, gs, gc, gd), (cl, cs, _, _) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(gl, cl, atol=1e-4, rtol=1e-4)
+    for a, b in zip(gs, cs):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    assert gc["flash_attention"] == 4, gc
+    assert gd["decode_attention"] == 2 * 4 and gd["flash_attention"] == 0, gd
 
 
 @pytest.mark.cuda

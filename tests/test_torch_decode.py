@@ -8,7 +8,8 @@ bridge):
   passed as a transposed (B, T, KH, D) view, as the engine passes it;
 * the dense decode branch of ``layers.attention`` and ``lm.decode_step``
   over a dense cache, per-slot and scalar positions, on the four dense
-  reduced configs and reduced olmoe;
+  reduced configs and reduced olmoe, and a dense cache continued
+  mid-sequence (scalar ``cache_pos`` > 0 with S > 1);
 * ``ServeEngine`` with the dense per-slot layout (``kv_block_size=0``),
   chunked and stall-the-world, token for token against the reference
   engine on reduced llama3.2.
@@ -107,13 +108,27 @@ def test_dense_decode_branch_matches_reference(name, per_slot):
 
 
 def test_dense_mid_sequence_continuation_names_its_item():
+    """A dense cache continued mid-sequence (scalar ``cache_pos`` 2, S 3,
+    over rows already holding two tokens): the new rows land at 2-4 and
+    attend causally over the whole row through the chunked core, as in
+    the reference; output and cache equal its."""
     arch = C.reduced("llama3_2_1b")
-    _, tp = _attn_params(arch)
-    tc = {k: torch.zeros(2, 8, arch.n_kv_heads, arch.hd) for k in "kv"}
-    x = torch.zeros(2, 3, arch.d_model)
-    with pytest.raises(NotImplementedError, match="mid-sequence dense"):
-        L.attention(tp, x, arch, positions=torch.arange(2, 5), kv_cache=tc,
-                    cache_pos=2)
+    jp, tp = _attn_params(arch)
+    rng = np.random.default_rng(9)
+    cache = {k: rng.standard_normal((2, 8, arch.n_kv_heads, arch.hd))
+             .astype(np.float32) for k in ("k", "v")}
+    x = rng.standard_normal((2, 3, arch.d_model)).astype(np.float32)
+    want, jc = JL.attention(jp, jnp.asarray(x), arch, None,
+                            positions=jnp.arange(2, 5),
+                            kv_cache=jax.tree.map(jnp.asarray, cache),
+                            cache_pos=2)
+    tc = {k: torch.from_numpy(a.copy()) for k, a in cache.items()}
+    got, tc = L.attention(tp, torch.from_numpy(x), arch,
+                          positions=torch.arange(2, 5), kv_cache=tc,
+                          cache_pos=2)
+    _close(got, want)
+    for k in ("k", "v"):
+        _close(tc[k], jc[k])
 
 
 @pytest.mark.parametrize("name", ["llama3_2_1b", "qwen2_5_3b", "olmo_1b",

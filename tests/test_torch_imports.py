@@ -36,17 +36,20 @@ sys.exit(1 if bad or missing else 0)
 # one of these is not among them
 MODULES = [
     "repro_torch.bridge", "repro_torch.checkpoint.manager",
-    "repro_torch.configs.jamba_1_5_large",
+    "repro_torch.configs.internvl2_76b", "repro_torch.configs.jamba_1_5_large",
+    "repro_torch.configs.seamless_m4t_v2",
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.rwkv6_1b6",
     "repro_torch.core.scan", "repro_torch.data.pipeline",
     "repro_torch.device", "repro_torch.kernels.build",
     "repro_torch.kernels.decode_attention",
     "repro_torch.kernels.flash_attention",
-    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.moe_dispatch",
+    "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mha_chunked",
+    "repro_torch.kernels.moe_dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
     "repro_torch.launch.serve", "repro_torch.launch.train",
-    "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.models.encdec", "repro_torch.models.layers",
+    "repro_torch.models.lm",
     "repro_torch.models.moe", "repro_torch.models.recurrent",
     "repro_torch.optim.adamw", "repro_torch.serve.engine",
     "repro_torch.serve.fns", "repro_torch.train.step",

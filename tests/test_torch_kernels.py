@@ -3,12 +3,15 @@
 On the CPU each op of ``repro_torch.kernels.ops`` runs its plain PyTorch
 version; the JAX side runs the Pallas kernels in interpret mode (paged
 decode, int8 paged decode, flash) or the XLA stream (the 5-d mixed
-form), as the reference's own tests do.  Tolerance 1e-5 in float32: the
+form), as the reference's own tests do; the positions-aware chunked core
+(``mha_chunked``, cross-attention's) against the reference's XLA one,
+output and gradient.  Tolerance 1e-5 in float32: the
 same math with the sums taken in another order.
 
 The CUDA kernels themselves are tested in ``test_torch_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +188,39 @@ def test_build_target_ignores_another_source(tmp_path, monkeypatch):
     assert build._target("one") == one
     assert build._target("two") != two
     assert one.parent == build.BUILD and one.name.startswith("one-")
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("Sq,Skv,qc,kc", [
+    (5, 7, 8, 8),        # both below their chunk: one chunk each
+    (16, 24, 4, 8),      # both above and dividing: 4 q chunks, 3 kv chunks
+    (10, 13, 4, 8),      # above but not dividing: one chunk each
+    (12, 9, 4, 3),       # Sq chunked, Skv chunked, queries past the keys
+], ids=["below", "chunked", "non-dividing", "mixed"])
+def test_mha_chunked_matches_the_reference(causal, Sq, Skv, qc, kc):
+    from repro_torch.kernels.mha_chunked import mha_chunked
+    rng = np.random.default_rng(Sq * 100 + Skv)
+    B, KH, G, D = 2, 2, 3, 16
+    q = rng.standard_normal((B, Sq, KH * G, D)).astype(np.float32)
+    k = rng.standard_normal((B, Skv, KH, D)).astype(np.float32)
+    v = rng.standard_normal((B, Skv, KH, D)).astype(np.float32)
+    # GQA-expanded heads (head h reads kv head h // G), free-form positions
+    k, v = np.repeat(k, G, axis=2), np.repeat(v, G, axis=2)
+    qpos = (np.arange(Sq) + 4).astype(np.int32)
+    kvpos = np.arange(Skv).astype(np.int32)
+    want = mha_xla.mha_chunked(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kvpos),
+        q_chunk=qc, kv_chunk=kc)
+    tq = _t(q).requires_grad_()
+    got = mha_chunked(tq, _t(k), _t(v), causal=causal, q_positions=_t(qpos),
+                      kv_positions=_t(kvpos), q_chunk=qc, kv_chunk=kc)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=TOL, rtol=TOL)
+    got.sum().backward()                      # autograd runs through it
+    want_g = jax.grad(lambda x: mha_xla.mha_chunked(
+        x, jnp.asarray(k), jnp.asarray(v), causal=causal,
+        q_positions=jnp.asarray(qpos), kv_positions=jnp.asarray(kvpos),
+        q_chunk=qc, kv_chunk=kc).sum())(jnp.asarray(q))
+    np.testing.assert_allclose(tq.grad.numpy(), np.asarray(want_g),
+                               atol=TOL, rtol=TOL)

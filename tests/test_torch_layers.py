@@ -1,8 +1,9 @@
 """The port's model primitives against ``repro.models.layers`` on the
 same numpy inputs and weights: ``rms_norm``, ``rope`` and each branch of
 ``attention`` the port takes (no cache, prefill into a dense row, paged
-single-token decode in fp and int8, and the mixed step over paged and
-dense caches), plus ``attention_out`` and ``mlp``.  Float32, tolerance
+single-token decode in fp and int8, the mixed step over paged and dense
+caches, a dense cache continued mid-sequence, and cross-attention over
+given K/V), plus ``attention_out`` and ``mlp``.  Float32, tolerance
 1e-5 (same math, other summation order).  The cache writes are compared
 too: the port updates the cache in place where the reference returns a
 new one.
@@ -180,9 +181,9 @@ def test_attention_mixed_dense():
 
 
 def test_dense_single_token_decode_names_slice_2():
-    """Dense single-token decode (per-slot positions) now runs and equals
-    the reference; continuing a dense cache mid-sequence still raises,
-    naming its item."""
+    """Dense single-token decode (per-slot positions) equals the
+    reference, and so does continuing the same dense cache mid-sequence
+    (a scalar ``cache_pos`` 3 given as a tensor, S 3, G 2)."""
     arch = C.reduced("llama3_2_1b")
     jp, tp = _attn_params(arch)
     jx, tx = _x(arch, 2, 1)
@@ -197,10 +198,14 @@ def test_dense_single_token_decode_names_slice_2():
     _close(got, want)
     for key in ("k", "v"):
         _close(tc[key], jc[key])
-    _, tx3 = _x(arch, 2, 3)
-    with pytest.raises(NotImplementedError, match="mid-sequence"):
-        L.attention(tp, tx3, arch, positions=torch.arange(3, 6), kv_cache=tc,
-                    cache_pos=3)
+    jx3, tx3 = _x(arch, 2, 3)
+    want, jc = JL.attention(jp, jx3, arch, None, positions=jnp.arange(3, 6),
+                            kv_cache=jc, cache_pos=jnp.int32(3))
+    got, tc = L.attention(tp, tx3, arch, positions=torch.arange(3, 6),
+                          kv_cache=tc, cache_pos=torch.tensor(3))
+    _close(got, want)
+    for key in ("k", "v"):
+        _close(tc[key], jc[key])
 
 
 def test_mlp_embed_and_tied_head():
@@ -215,3 +220,31 @@ def test_mlp_embed_and_tied_head():
     _close(L.embed(te, torch.from_numpy(tok).long()),
            JL.embed(je, jnp.asarray(tok), None))
     _close(L.lm_head({}, tx, te, arch), JL.lm_head({}, jx, je, arch, None))
+
+
+@pytest.mark.parametrize("use_rope", [False, True], ids=["no-rope", "rope"])
+@pytest.mark.parametrize("name", ["llama3_2_1b", "qwen2_5_3b",
+                                  "olmoe_1b_7b"])
+def test_cross_attention_over_given_kv(name, use_rope):
+    """``kv_override``: K/V of another length come in as they are (no
+    bias, norm or rope on them), q keeps its bias and norm; the core is
+    the chunked one over K/V repeated over the head groups, causal over
+    free-form positions or not."""
+    arch = C.reduced(name)
+    jp, tp = _attn_params(arch)
+    jx, tx = _x(arch, 2, 5)
+    rng = np.random.default_rng(11)
+    mk, mv = (rng.standard_normal((2, 7, arch.n_kv_heads, arch.hd))
+              .astype(np.float32) for _ in range(2))
+    mpos = np.arange(7, dtype=np.int32)
+    for causal in (False, True):
+        want, _ = JL.attention(
+            jp, jx, arch, None, positions=jnp.arange(2, 7), causal=causal,
+            kv_override=(jnp.asarray(mk), jnp.asarray(mv),
+                         jnp.asarray(mpos)), use_rope=use_rope)
+        got, cache = L.attention(
+            tp, tx, arch, positions=torch.arange(2, 7), causal=causal,
+            kv_override=(torch.from_numpy(mk), torch.from_numpy(mv),
+                         torch.from_numpy(mpos)), use_rope=use_rope)
+        assert cache is None
+        _close(got, want)

@@ -39,7 +39,7 @@ def _close(got, want, tol=TOL):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["internvl2_76b", "seamless_m4t_v2"])
 def test_configs_are_copies_of_the_reference(name):
     assert dataclasses.asdict(TC.get(name)) == dataclasses.asdict(C.get(name))
     assert (dataclasses.asdict(TC.reduced(name))

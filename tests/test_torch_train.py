@@ -4,9 +4,11 @@ the reference's weights moved across by the bridge: ``loss_fn`` and every
 gradient leaf, ``make_train_step`` after 1 and 3 steps (params, AdamW
 moments, step, metrics), microbatch accumulation (against one batch, and
 against the reference's microbatched step where the MoE load-balancing
-loss makes the two differ), the optimizer alone, the synthetic data,
+loss makes the two differ), the optimizer alone, the synthetic data (the
+encoder-decoder's frames and the VLM's frontend embeddings too),
 checkpoints that cross between the packages both ways, and the train
-command.
+command; then two train steps of reduced seamless-m4t-v2 and internvl2
+on their datasets' batches.
 
 Tolerances, float32 (the same math with sums in another order):
   * loss, logits and metrics: 1e-5 (relative to the values' scale);
@@ -320,9 +322,18 @@ def test_synthetic_batches_equal_the_reference(seed, step, host):
         ["tokens"],
         jmake_dataset(arch, JShapeSpec("t", 9, 3, "train")).batch_at(step)
         ["tokens"])
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        make_dataset(C.reduced("seamless_m4t_v2"),
-                     ShapeSpec("t", 8, 2, "train"))
+    # the encoder-decoder's frames and the VLM's frontend embeddings
+    for name, key in (("seamless_m4t_v2", "frames"),
+                      ("internvl2_76b", "frontend")):
+        arch = C.reduced(name)
+        got = make_dataset(arch, ShapeSpec("t", 12, 4, "train"),
+                           seed=seed).batch_at(step, host, 2)
+        want = jmake_dataset(arch, JShapeSpec("t", 12, 4, "train"),
+                             seed=seed).batch_at(step, host, 2)
+        assert sorted(got) == sorted(want) == sorted(["tokens", key])
+        for k in got:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 # --------------------------------------------------------------------------- #
@@ -418,3 +429,42 @@ def test_train_command_names_the_slice_of_a_later_flag(flag):
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="slice"):
         train.main(TINY + flag)
+
+
+@pytest.mark.parametrize("name", ["seamless_m4t_v2", "internvl2_76b"])
+def test_seq2seq_and_vlm_train_steps_match_jax(name):
+    """Two steps of ``make_train_step`` on the encoder-decoder (frames +
+    tokens; ``encdec.loss_fn``) and on the VLM (frontend + text), each
+    batch from the reference's dataset: metrics, AdamW moments and
+    parameters against the reference's jitted step."""
+    from repro.models import encdec as jencdec
+    from repro_torch.data import make_dataset as tmake_dataset
+    arch = C.reduced(name)
+    init = jencdec.init_encdec if arch.enc_layers else jlm.init_lm
+    jp = init(jax.random.PRNGKey(0), arch, jnp.float32)
+    tp = params_from_jax(_np_tree(jp), "cpu")
+    seq = 16 + arch.frontend_tokens
+    ds = tmake_dataset(arch, ShapeSpec("t", seq, 2, "train"))
+    jstep = jax.jit(jmake_train_step(arch, None, JTrainConfig(
+        optimizer=JAdamWConfig(**OPT))))
+    tstep = make_train_step(arch, None, TrainConfig(
+        optimizer=AdamWConfig(**OPT)))
+    jo, to = jadamw_init(jp), adamw_init(tp)
+    lr_sum = 0.0
+    for step in range(2):
+        batch = ds.batch_at(step)
+        assert sorted(batch) == sorted(
+            ["tokens", "frames" if arch.enc_layers else "frontend"])
+        jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v)
+                                    for k, v in batch.items()})
+        tp, to, tm = tstep(tp, to, {k: torch.from_numpy(v)
+                                    for k, v in batch.items()})
+        lr_sum += float(jm["lr"])
+        for k in jm:
+            _close(tm[k], jm[k], what=f"step {step} {k}")
+    for (k, got), (_, want) in zip(_leaves(params_to_numpy(to["m"])),
+                                   _leaves(_np_tree(jo["m"]))):
+        _grad_close(got, want, what=k)
+    for (k, got), (_, want) in zip(_leaves(params_to_numpy(tp)),
+                                   _leaves(_np_tree(jp))):
+        _params_close(got, want, lr_sum, k)
