@@ -117,7 +117,23 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    on the card, at the published width and depth 1-2, for the five.
    Then llama3.2-1b, 2 steps under each remat policy: peak memory and
    step time, gradients equal.
-6. the ``kernels`` JSON line, the card's name and power limit, and the
+6. plan: the paper's search (``repro_torch.core``) on the host for
+   llama3.2-1b and olmoe-1b-7b at their published sizes, the train (8 x
+   256), prefill (one 512-token prompt) and decode (8 slots over 1024
+   tokens) phases on three modelled H100 meshes (one node of 8 on data,
+   one of 2 x 4, two such nodes over InfiniBand), with and without the
+   memory budget, beside the data / model / owt baselines (the search
+   without the budget may cost no more than any baseline its space
+   holds); the cost model's price of llama's uniform train step on one
+   H100.  Then llama's 2 x 4 node plan saved and loaded (its chip must
+   come back as the H100's), the train command at llama3.2-1b's published
+   size for 2 steps without a plan and with ``--plan`` on that file (the
+   mesh mismatch must be logged, the losses equal, flash launched 32
+   times a step), and the serve command at the published size plain,
+   ``--strategy searched --save-plan``, ``--plan`` on that file and
+   ``--plan`` on the node plan (the paged decode launched, the tokens
+   equal).
+7. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -2340,6 +2356,243 @@ def phase_train(torch, device):
 
 
 # --------------------------------------------------------------------------- #
+# the plan search, and the train and serve commands under plans
+# --------------------------------------------------------------------------- #
+# the searched archs, the modelled H100 meshes (nodes, data, model) and the
+# phases' shapes: train 8 x 256 (the train runs'), prefill one 512-token
+# prompt, decode 8 slots over a 1024-token cache (the serve engine's)
+PLAN_ARCHS = ("llama3.2-1b", "olmoe-1b-7b")
+PLAN_MESHES = ((1, 8, 1), (1, 2, 4), (2, 2, 4))
+PLAN_SHAPES = {"train": {"seq_len": 256, "batch": 8},
+               "prefill": {"seq_len": 512, "batch": 1},
+               "decode": {"seq_len": 1024, "batch": 8}}
+# the serve runs of the plan phase: published llama3.2-1b, 4 slots, paged
+# pool and chunked prefill (the command's defaults)
+PLAN_SERVE = ["--arch", "llama3.2-1b", "--width", "0", "--depth", "0",
+              "--vocab", "0", "--batch", "4", "--requests", "6",
+              "--prompt-len", "96", "--gen", "8"]
+PLAN_TRAIN = ["--arch", "llama3.2-1b", "--steps", "2", "--ckpt-every", "0",
+              "--log-every", "1"]
+
+
+def plan_search(arch_name: str, mesh_args) -> dict:
+    """Each phase of ``arch_name`` searched on ``h100_mesh_spec(*mesh_args)``
+    with the memory budget (the plan a user saves) and without (the
+    paper's optimality, which the gate reads), beside the three baselines'
+    costs.  A baseline is compared only where its configs lie in the
+    search space: one that splits a dimension that does not divide (batch
+    1 over the pod axis) is priced by the cost model but realizable by no
+    plan, and is reported as such."""
+    from repro_torch import configs
+    from repro_torch.core import (BASELINES, CostModel, SearchOptions,
+                                  config_space, find_strategy,
+                                  h100_mesh_spec)
+    from repro_torch.models.graph_export import export_graph, phase_shape
+    arch = configs.get(arch_name)
+    mesh = h100_mesh_spec(*mesh_args)
+    free = SearchOptions(hbm_budget=None)
+    out = {"phase": f"plan-search-{arch_name}-"
+                    f"{'x'.join(map(str, mesh_args))}",
+           "mesh": [(a.name, a.size, a.bw) for a in mesh.axes],
+           "chip": mesh.chip.name, "phases": {}}
+    for phase, shape in PLAN_SHAPES.items():
+        g = export_graph(arch, phase_shape(phase, **shape))
+        t0 = time.perf_counter()
+        s = find_strategy(g, mesh, phase=phase)
+        search_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sf = find_strategy(g, mesh, phase=phase, options=free)
+        free_s = time.perf_counter() - t0
+        space = config_space(g, mesh, free)
+        cm = CostModel(mesh, phase=phase)
+        base, over = {}, []
+        for b, fn in BASELINES.items():
+            strat = fn(g, mesh)
+            realizable = all(strat[n] in space[n] for n in g.nodes)
+            base[b] = {"cost_s": cm.total_time(g, strat),
+                       "realizable": realizable}
+            if realizable and sf.cost > base[b]["cost_s"] * (1 + 1e-9):
+                over.append(b)
+        out["phases"][phase] = {
+            "nodes": g.num_nodes, "cost_s": s.cost, "search_s": search_s,
+            "device_bytes": s.meta["device_bytes"],
+            "budget_bytes": SearchOptions().budget_for(mesh),
+            "capacity_iters": s.meta["capacity_iters"],
+            "cost_budget_free_s": sf.cost, "search_budget_free_s": free_s,
+            "baselines": base, "costlier_than": over}
+        if over:
+            fail(f"{out['phase']} {phase}: searched {sf.cost} above the "
+                 f"baselines {over}: {base}")
+    return out
+
+
+def _timed_train(torch, argv):
+    """The train command's ``main(argv)`` with its stdout captured (and
+    echoed), each train step timed (the step wrapped in device syncs) and
+    the launch counts reset just before and read just after."""
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    real, times = train.make_train_step, []
+
+    def timed(*a, **k):
+        fn = real(*a, **k)
+
+        def step(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return step
+
+    buf = io.StringIO()
+    train.make_train_step = timed
+    ops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(buf):
+            hist = train.main(argv)
+    finally:
+        train.make_train_step = real
+    counts = ops.launch_counts()
+    print(buf.getvalue(), end="", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist, times, buf.getvalue(), counts
+
+
+def _serve(torch, argv):
+    import io
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    ops.reset_launch_counts()
+    with contextlib.redirect_stdout(buf):
+        out = serve.main(argv)
+    counts = ops.launch_counts()
+    print(buf.getvalue(), end="", flush=True)
+    toks = {c.uid: list(c.tokens) for c in out["completions"]}
+    res = {"plan": out["plan"].strategy_name, "tok_s": out["tok_s"],
+           "wall_s": out["wall_s"], "launches": counts}
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, toks, buf.getvalue()
+
+
+def phase_plan(torch, device):
+    """The paper's search on the host: llama3.2-1b and olmoe-1b-7b at their
+    published sizes, the train / prefill / decode phases on three modelled
+    H100 meshes (one node of 8 on data, one of 2 x 4, two such nodes over
+    InfiniBand), searched costs beside the baselines'; the cost model's
+    price of llama's uniform train step on one H100.  Then the llama node
+    plan (2 x 4) saved and loaded (its chip must come back as the H100's),
+    the train command at the published size for 2 steps without a plan
+    and with ``--plan`` on that file (the mesh mismatch logged, the losses
+    equal), and the serve command plain, ``--strategy searched
+    --save-plan``, ``--plan`` on that file and ``--plan`` on the node plan
+    (the tokens equal)."""
+    from repro_torch import configs
+    from repro_torch.core import (CostModel, H100_SXM, LayerConfig,
+                                  h100_mesh_spec, uniform_strategy)
+    from repro_torch.models.graph_export import export_graph, phase_shape
+    from repro_torch.plans import ParallelPlan, build_parallel_plan
+    counts = {}
+    for name in PLAN_ARCHS:
+        for m in PLAN_MESHES:
+            emit(plan_search(name, m))
+    arch = configs.get("llama3.2-1b")
+    node = h100_mesh_spec(1, 2, 4)
+    t0 = time.perf_counter()
+    plan = build_parallel_plan(
+        arch, node, train_seq=PLAN_SHAPES["train"]["seq_len"],
+        train_batch=PLAN_SHAPES["train"]["batch"],
+        prompt_len=PLAN_SHAPES["prefill"]["seq_len"],
+        max_batch=PLAN_SHAPES["decode"]["batch"],
+        max_len=PLAN_SHAPES["decode"]["seq_len"])
+    build_s = time.perf_counter() - t0
+    path = plan.save(OUT / "plan-llama3.2-1b-h100-2x4.json")
+    back = ParallelPlan.load(path, arch=arch)
+    chip_ok = (back.mesh == node and back.mesh.chip == H100_SXM)
+    emit({"phase": "plan-save-load", "path": str(path.relative_to(ROOT)),
+          "build_s": build_s, "chip": back.mesh.chip.name,
+          "chip_efficiencies": [back.mesh.chip.mxu_efficiency,
+                                back.mesh.chip.hbm_efficiency],
+          "chip_ok": chip_ok,
+          "train_segments": len(back.plan_for("train").segments),
+          "costs_s": {ph: m["cost_s"] for ph, m in
+                      back.meta["phases"].items()}})
+    if not chip_ok:
+        fail(f"plan-save-load: the plan came back on {back.mesh}")
+
+    # the train command without a plan, then under the loaded node plan
+    runs = {}
+    for tag, extra in (("plain", []), ("plan", ["--plan", str(path)])):
+        hist, times, out, c = _timed_train(torch, PLAN_TRAIN + extra)
+        runs[tag] = (hist, times, out)
+        counts[f"plan-train-{tag}"] = c
+        want = {k: 2 * n for k, n in train_launches(arch).items()}
+        if any(c.get(k) != n for k, n in want.items()):
+            fail(f"plan-train-{tag}: launches {c} (want {want})")
+    (h0, t_plain, _), (h1, t_plan, out1) = runs["plain"], runs["plan"]
+    l0, l1 = [h["loss"] for h in h0], [h["loss"] for h in h1]
+    bitwise = l0 == l1
+    close = len(l0) == len(l1) == 2 and all(
+        abs(a - b) <= TRAIN_REF_TOL["metric"] * (1 + abs(b))
+        for a, b in zip(l1, l0))
+    note = "plan searched for mesh" in out1
+    # the cost model's price of the same step on one H100
+    g = export_graph(arch, phase_shape("train", **PLAN_SHAPES["train"]))
+    one = h100_mesh_spec(1, 1, 1)
+    price = CostModel(one, phase="train").total_time(
+        g, uniform_strategy(g, lambda n: LayerConfig.make(batch=("data",))))
+    flops = sum(n.flops for n in g.nodes.values())
+    emit({"phase": "plan-train", "loss_plain": l0, "loss_plan": l1,
+          "losses_bitwise_equal": bitwise, "losses_within_tol": close,
+          "tol": TRAIN_REF_TOL["metric"], "mesh_mismatch_logged": note,
+          "step_ms_plain": [t * 1e3 for t in t_plain],
+          "step_ms_plan": [t * 1e3 for t in t_plan],
+          "launches": dict(counts)})
+    print(f"cost model: llama3.2-1b uniform train step (8 x 256) on one "
+          f"H100 (spec sheet, bf16 peak x {one.chip.mxu_efficiency}) "
+          f"{price * 1e3:.3f} ms ({flops / 1e12:.2f} TFLOP); measured f32 "
+          f"step of the same run {t_plan[-1] * 1e3:.1f} ms", flush=True)
+    emit({"phase": "plan-price", "graph_flops": flops,
+          "cost_model_ms": price * 1e3,
+          "measured_step_ms": t_plan[-1] * 1e3,
+          "measured_over_model": t_plan[-1] / price})
+    if not close:
+        fail(f"plan-train: losses {l1} under the plan, {l0} without")
+    if not note:
+        fail("plan-train: the mesh mismatch of the loaded plan was not "
+             "logged")
+
+    # the serve command: plain, searched + saved, loaded, the node plan
+    saved = OUT / "plan-serve-llama3.2-1b.json"
+    toks, serve = {}, {}
+    for tag, extra in (("plain", []),
+                       ("searched", ["--strategy", "searched",
+                                     "--save-plan", str(saved)]),
+                       ("saved", ["--plan", str(saved)]),
+                       ("node", ["--plan", str(path)])):
+        res, toks[tag], out = _serve(torch, PLAN_SERVE + extra)
+        serve[tag] = res
+        counts[f"plan-serve-{tag}"] = res["launches"]
+        if res["launches"].get("paged_decode_attention", 0) <= 0:
+            fail(f"plan-serve-{tag}: the paged decode was not launched")
+        if tag == "node" and "plan searched for mesh" not in out:
+            fail("plan-serve-node: the mesh mismatch was not logged")
+    equal = all(toks[t] == toks["plain"] for t in toks)
+    emit({"phase": "plan-serve", "runs": serve, "tokens_equal": equal,
+          "requests": len(toks["plain"]),
+          "tokens": sum(len(t) for t in toks["plain"].values())})
+    if not equal:
+        fail(f"plan-serve: tokens differ between runs: {toks}")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
 def main() -> int:
     try:
         import torch
@@ -2554,6 +2807,7 @@ def main() -> int:
         ("serve-seamless", lambda: phase_serve_seamless(torch, device)),
         ("serve-internvl2", lambda: phase_serve_internvl2(torch, device)),
         ("train", lambda: phase_train(torch, device)),
+        ("plan", lambda: phase_plan(torch, device)),
     ]
     counts, seconds = {}, {}
     for name, fn in steps:
@@ -2572,7 +2826,7 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
         if name in ("serve", "serve-olmoe", "serve-jamba", "serve-rwkv6",
-                    "serve-seamless", "serve-internvl2", "train"):
+                    "serve-seamless", "serve-internvl2", "train", "plan"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)

@@ -36,6 +36,21 @@ and decoder tokens) are prefilled once over dense rows, then decoded
 drawn from a ``torch.Generator`` seeded with ``--seed``; prompts come from
 a numpy generator with the same seed.  ``--device cpu`` runs the plain
 PyTorch versions on the CPU; without it the command needs a GPU.
+
+The plan flags are the reference's (:func:`resolve_serve_plan`):
+``--strategy {uniform,data,model,owt,searched}`` builds a phase-aware
+plan (prefill priced as a batch-1 prompt, decode as the engine's mixed
+step over the slot pool, at the paged pool's allocated depth, with
+``--shared-prefix-tokens`` of it shared across the pool), ``--plan``
+loads one from JSON instead (arch-checked), ``--save-plan`` writes it.
+One GPU has no mesh, so a built plan degrades to uniform and a loaded
+one places nothing (both logged); the engine and the lockstep loop take
+the plan all the same, and a plan whose decode phase is
+pipeline-staged is refused.
+
+    python -m repro_torch.launch.serve --arch llama3.2-1b \
+        --strategy searched --save-plan plan.json
+    python -m repro_torch.launch.serve --arch llama3.2-1b --plan plan.json
 """
 
 from __future__ import annotations
@@ -52,6 +67,8 @@ from repro_torch.launch.train import reduced_arch, require_kernel_shapes
 from repro_torch.data import make_dataset
 from repro_torch.models import init_params, model_module
 from repro_torch.models.arch import ShapeSpec
+from repro_torch.plans import STRATEGIES, ParallelPlan, resolve_plan
+from repro_torch.plans.parallel_plan import as_model_plan
 from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
 
 
@@ -91,6 +108,23 @@ def parser() -> argparse.ArgumentParser:
                     choices=list(PrefixCache.EVICTION))
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"],
                     help="int8 stores pool blocks with per-row f32 scales")
+    ap.add_argument("--shared-prefix-tokens", type=int, default=0,
+                    help="typical shared-prefix length for decode-phase "
+                         "plan pricing: these tokens are allocated once "
+                         "across the pool, so per-slot KV depth is "
+                         "amortized (0 = no sharing assumed)")
+    ap.add_argument("--strategy", default="uniform",
+                    choices=list(STRATEGIES),
+                    help="parallelization plan: uniform/data/model/owt "
+                         "baselines or the searched per-phase plan "
+                         "(prefill + decode searched separately)")
+    ap.add_argument("--plan", default="",
+                    help="load a ParallelPlan JSON (from --save-plan here "
+                         "or on the train command); overrides --strategy, "
+                         "refuses an arch mismatch")
+    ap.add_argument("--save-plan", default="",
+                    help="write the plan (searched or baseline) to this "
+                         "JSON path for later --plan runs")
     ap.add_argument("--width", type=int, default=0)
     ap.add_argument("--depth", type=int, default=4)
     ap.add_argument("--vocab", type=int, default=512)
@@ -104,18 +138,80 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def resolve_serve_plan(arch, mesh_spec, *, plan_path: str = "",
+                       strategy: str = "uniform", prompt_len: int,
+                       max_batch: int, max_len: int,
+                       kv_block_size: int = 0,
+                       prefill_chunk_tokens: int = 0,
+                       shared_prefix_tokens: int = 0,
+                       kv_quant: str | None = None,
+                       save_plan: str = "") -> ParallelPlan:
+    """Serving preset of :func:`repro_torch.plans.resolve_plan` (the
+    reference's ``repro.launch.serve.resolve_serve_plan``): the phases a
+    serving process executes are prefill + decode.
+
+    With a paged cache (``kv_block_size > 0``) the decode phase is priced
+    at the per-slot allocated-blocks depth (``max_len`` rounded up to
+    whole blocks); with prefix caching, ``shared_prefix_tokens`` of it are
+    allocated once across the pool, so the amortized depth is ``unique +
+    ceil(shared / max_batch)``.  (The reference's preset also takes a
+    typical request budget below ``max_len``, which only its serving
+    benchmark passes.)  With
+    chunked prefill (``prefill_chunk_tokens > 0``) decode is priced as the
+    engine's mixed step: ``ceil((max_batch - 1 + chunk) / max_batch)``
+    query tokens a slot.  ``kv_quant="int8"`` prices the cache read at
+    the quantized pool's width and is recorded in the plan's meta.  A
+    plan whose decode phase is pipeline-staged is refused; a staged
+    prefill phase is noted (serving runs it unstaged).
+    """
+    kv_tokens = None
+    if kv_block_size:
+        tokens = max_len
+        shared = min(max(0, shared_prefix_tokens), tokens)
+        if shared and max_batch > 1:
+            tokens = (tokens - shared) + -(-shared // max_batch)
+        kv_tokens = -(-tokens // kv_block_size) * kv_block_size
+    q_tokens = None
+    if prefill_chunk_tokens > 0:
+        q_tokens = -(-(max_batch - 1 + prefill_chunk_tokens) // max_batch)
+    plan = resolve_plan(
+        arch, mesh_spec, phases=("prefill", "decode"),
+        plan_path=plan_path, strategy=strategy, save_plan=save_plan,
+        prompt_len=prompt_len, max_batch=max_batch, max_len=max_len,
+        decode_kv_tokens=kv_tokens, decode_q_tokens=q_tokens,
+        decode_kv_quant=kv_quant if kv_block_size else None)
+    dec = plan.stage_for("decode")
+    if dec.num_stages > 1:
+        raise ValueError(
+            f"plan's decode phase is pipeline-staged (S={dec.num_stages}); "
+            f"the serve engine executes a single mesh — token-level decode "
+            f"pipelining is not implemented yet.  Re-search the serve plan "
+            f"without stages or load a plan whose decode phase is "
+            f"single-stage.")
+    pre = plan.stage_for("prefill")
+    if pre.num_stages > 1:
+        print(f"serve: note — plan's prefill phase is pipeline-staged "
+              f"(S={pre.num_stages}); serving runs the whole model on one "
+              f"mesh under stage-0 semantics (per-layer configs only, no "
+              f"pipelining)")
+    return plan
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
-def lockstep(params, arch, batch: dict, gen: int, *, feed=None) -> dict:
+def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
+             plan=None) -> dict:
     """The static lockstep loop over dense rows: one prefill of ``batch``
     (an encoder-decoder's frames and tokens, or a VLM's frontend and
     text), then ``gen - 1`` greedy decode steps at one scalar position
     (step i fed column i of ``feed`` (B, gen - 1) instead, where given).
     Returns the tokens (B, gen) on the host, every call's last-position
-    logits on the device, and the prefill's and the steps' seconds."""
+    logits on the device, and the prefill's and the steps' seconds.
+    ``plan`` is checked against ``arch`` and places nothing (one device)."""
+    as_model_plan(plan, arch, "decode")        # checks the arch
     mod = model_module(arch)
     device = batch["tokens"].device
     dtype = params["embed"]["table"].dtype
@@ -166,16 +262,16 @@ def encdec_inputs(args, arch, device, dtype):
     return params, batch
 
 
-def serve_encdec(args, arch, device, dtype) -> dict:
+def serve_encdec(args, arch, device, dtype, plan=None) -> dict:
     """The reference's lockstep encoder-decoder path (:func:`lockstep`):
     prefill ``--batch`` rows once over a dense cache with the memory, then
     decode with a scalar position.  A prefill and one step run first on a
     throwaway cache, before anything is timed."""
     params, batch = encdec_inputs(args, arch, device, dtype)
     t0 = time.perf_counter()
-    lockstep(params, arch, batch, 2)
+    lockstep(params, arch, batch, 2, plan=plan)
     t_warm = time.perf_counter() - t0
-    out = lockstep(params, arch, batch, args.gen)
+    out = lockstep(params, arch, batch, args.gen, plan=plan)
     t_prefill, t_decode = out["prefill_s"], out["decode_s"]
     pos = batch["tokens"].shape[1]
     gen = out["tokens"]
@@ -200,13 +296,23 @@ def main(argv=None) -> dict:
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
     require_kernel_shapes(arch, device)
-    if arch.enc_layers:
-        return serve_encdec(args, arch, device, dtype)
-    n_requests = args.requests or 2 * args.batch
     max_len = args.prompt_len + args.gen
+    # the plan prices decode with the chunk budget the engine will run
     chunk = args.prefill_chunk_tokens
     if chunk < 0:
         chunk = 2 * args.kv_block_size if args.kv_block_size else 256
+    # one GPU: no mesh (a built plan degrades to uniform, as logged)
+    plan = resolve_serve_plan(
+        arch, None, plan_path=args.plan, strategy=args.strategy,
+        prompt_len=args.prompt_len, max_batch=args.batch, max_len=max_len,
+        kv_block_size=args.kv_block_size,
+        prefill_chunk_tokens=min(chunk, max_len),
+        shared_prefix_tokens=args.shared_prefix_tokens,
+        kv_quant=None if args.kv_quant == "none" else args.kv_quant,
+        save_plan=args.save_plan)
+    if arch.enc_layers:
+        return serve_encdec(args, arch, device, dtype, plan)
+    n_requests = args.requests or 2 * args.batch
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(arch, dtype, generator=gen, device=device)
     requests = make_requests(arch.vocab, n_requests, args.prompt_len,
@@ -219,7 +325,8 @@ def main(argv=None) -> dict:
         prefill_chunk_tokens=chunk, dtype=dtype,
         prefix_cache=not args.no_prefix_cache,
         prefix_evict=args.prefix_evict,
-        kv_quant=None if args.kv_quant == "none" else args.kv_quant))
+        kv_quant=None if args.kv_quant == "none" else args.kv_quant),
+        plan=plan)
     t_warm = engine.warmup(sorted({len(r.prompt) for r in requests}))
     t0 = time.perf_counter()
     completions = engine.run(requests)
@@ -235,7 +342,8 @@ def main(argv=None) -> dict:
                + ")" if engine.paged else "dense")
     print(f"arch={arch.name} slots={args.batch} requests={n_requests} "
           f"prompt={args.prompt_len} gen<={args.gen} mode={mode} "
-          f"dtype={args.dtype} device={where} kv={kv_desc}")
+          f"plan={plan.strategy_name} dtype={args.dtype} device={where} "
+          f"kv={kv_desc}")
     print(f"kv reserved: {engine.kv_bytes_reserved / 2**20:.2f} MiB")
     print(f"warmup: {t_warm:.2f} s (excluded from the rates below)")
     if engine.chunked:
@@ -258,7 +366,7 @@ def main(argv=None) -> dict:
           f"({out_tokens / max(wall, 1e-9):.1f} tok/s)")
     for c in sorted(completions, key=lambda c: c.uid)[:2]:
         print(f"  uid={c.uid} [{c.finish_reason}]", c.tokens[:16])
-    return {"completions": completions, "wall_s": wall,
+    return {"completions": completions, "plan": plan, "wall_s": wall,
             "tok_s": out_tokens / max(wall, 1e-9), "itl_ms": list(itl)}
 
 

@@ -22,12 +22,18 @@ reference's, plus ``--device`` (``cpu`` runs the plain PyTorch versions
 on the CPU; without it the command needs a GPU).  The default checkpoint
 directory is ``repro_ckpt`` under the temporary directory (``TMPDIR``).
 
-One GPU has a one-device mesh, on which every strategy the reference
-searches degrades to uniform (it says so, as the reference does).  The
-flags that need the plan search, the profiler or the kernel dispatcher
-(``--plan``, ``--save-plan``, ``--device-profile``,
-``--pipeline-stages`` other than 0/1, ``--kernel-backend``,
-``--autotune-cache-dir``) raise, naming the slice that brings them.
+The plan flags are the reference's and go through the port's
+``plans.resolve_plan``: ``--strategy`` builds a plan, ``--plan`` loads
+one (arch-checked; it beats ``--strategy``), ``--save-plan`` writes the
+plan either way, ``--pipeline-stages`` asks the searched train phase for
+pipeline stages.  One GPU has no mesh (``None``), on which every built
+plan degrades to uniform, and a loaded plan searched for a mesh says
+that it places nothing here (both logged, as the reference logs them);
+the train phase of the plan goes to ``make_train_step``, which refuses a
+pipeline-staged one, naming the realization slice.  The flags that need
+the profiler or the kernel dispatcher (``--device-profile``,
+``--kernel-backend``, ``--autotune-cache-dir``) raise, naming the slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
 from repro_torch.models import init_params
 from repro_torch.models.arch import ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw_init
+from repro_torch.plans import resolve_plan
 from repro_torch.train import TrainConfig, make_train_step
 
 
@@ -140,13 +147,19 @@ def parser() -> argparse.ArgumentParser:
                              "uniform", "none"])
     ap.add_argument("--pipeline-stages", type=int, default=0,
                     help="pipeline the train phase over this many stages "
-                         "(plans / multi-GPU slice); 0/1 = no pipelining")
+                         "(searched two-level; needs --strategy search and "
+                         "a mesh: one GPU degrades to uniform); 0/1 = no "
+                         "pipelining, -1 = auto-search the stage count")
     ap.add_argument("--microbatches", type=int, default=8,
                     help="1F1B microbatch count M when pipelining")
     ap.add_argument("--plan", default="",
-                    help="load a ParallelPlan JSON (plans slice)")
+                    help="load a ParallelPlan JSON (the train phase is "
+                         "used); overrides --strategy, refuses an arch "
+                         "mismatch")
     ap.add_argument("--save-plan", default="",
-                    help="write the plan to this JSON path (plans slice)")
+                    help="write the plan (searched or baseline) to this "
+                         "JSON path; reload with --plan here or on the "
+                         "serve command")
     ap.add_argument("--ckpt-dir",
                     default=str(Path(tempfile.gettempdir()) / "repro_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
@@ -166,10 +179,6 @@ def parser() -> argparse.ArgumentParser:
 
 def _refuse_later_flags(args) -> None:
     later = [
-        (args.plan or args.save_plan, "--plan/--save-plan",
-         "the plans / multi-GPU slice"),
-        (args.pipeline_stages not in (0, 1), "--pipeline-stages",
-         "the plans / multi-GPU slice (1F1B stages)"),
         (args.device_profile, "--device-profile",
          "the H100 profiling slice"),
         (args.kernel_backend or args.autotune_cache_dir,
@@ -195,15 +204,21 @@ def main(argv=None) -> list[dict]:
     shape = ShapeSpec("custom", args.seq, args.batch, "train")
     name = {"search": "searched", "none": "uniform"}.get(
         args.strategy, args.strategy)
-    if name != "uniform":
-        print(f"plan: single device — strategy {name!r} degrades to "
-              f"uniform")
+    # one GPU: no mesh, so a built plan degrades to uniform and a loaded
+    # one places nothing (resolve_plan logs both)
+    pplan = resolve_plan(
+        arch, None, phases=("train",), plan_path=args.plan, strategy=name,
+        save_plan=args.save_plan, train_seq=args.seq,
+        train_batch=args.batch, train_stages=args.pipeline_stages,
+        train_microbatches=args.microbatches)
+    staged = pplan.stage_for("train").num_stages > 1
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20,
                           total_steps=args.steps)
     tcfg = TrainConfig(optimizer=opt_cfg, q_chunk=256, time_chunk=32,
                        remat=True)
-    step_fn = make_train_step(arch, None, tcfg)
+    step_fn = make_train_step(
+        arch, pplan if staged else pplan.plan_for("train"), tcfg)
     ds = make_dataset(arch, shape)
 
     ckpt = CheckpointManager(args.ckpt_dir)

@@ -1,8 +1,11 @@
 """Model zoo of the port: the dense, MoE, RWKV6, Mamba-hybrid and VLM
 decoder-only LMs (``lm``, ``moe``, ``recurrent``) and the
-encoder-decoder (``encdec``) on the shared ``arch`` schema."""
+encoder-decoder (``encdec``) on the shared ``arch`` schema, with the
+search's view of them: ``graph_export`` (the computation graph a plan is
+searched on) and ``plan`` (the searched plan's per-unit form)."""
 
-from .arch import ArchConfig, LayerSpec
+from .arch import SHAPES, ArchConfig, LayerSpec, ShapeSpec
+from .plan import ModelPlan, Segment, strategy_to_plan, uniform_plan
 
 
 def is_encdec(arch: ArchConfig) -> bool:

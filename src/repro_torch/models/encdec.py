@@ -26,23 +26,14 @@ every layer; the cache holds the decoder's KV rows and the memory.
 
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 
 from repro_torch.device import resolve_device
 
 from . import layers as L
 from . import lm
-from .arch import ArchConfig, LayerSpec
-
-
-def _enc_view(arch: ArchConfig) -> ArchConfig:
-    """The encoder stack seen as a period-1 attn + dense arch (the
-    reference's ``repro.models.plan._enc_view``)."""
-    return dataclasses.replace(
-        arch, n_layers=arch.enc_layers, enc_layers=0,
-        pattern=(LayerSpec(mixer="attn", ffn="dense"),))
+from .arch import ArchConfig
+from .plan import _enc_view
 
 
 def init_encdec(arch: ArchConfig, dtype=torch.float32, *,

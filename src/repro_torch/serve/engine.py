@@ -22,6 +22,9 @@
   ``kv_block_size`` says, and ``kv_quant`` is inert there.
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
+* A plan (``plan=``, a ``ParallelPlan`` or ``ModelPlan``) is checked
+  against the arch and resolved per phase, as the reference's is; on one
+  device it places nothing.
 * A frontend arch (a VLM) is served on text prompts alone: the engine
   passes no ``frontend``, as the reference's does.  An encoder-decoder
   raises (``launch/serve.py`` serves it in lockstep).
@@ -40,6 +43,8 @@ import torch
 from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models import is_encdec, lm
 from repro_torch.models.arch import ArchConfig
+from repro_torch.models.plan import ModelPlan
+from repro_torch.plans.parallel_plan import ParallelPlan
 
 from .config import ServeConfig
 from .fns import _is_kv_path, make_serve_fns
@@ -120,7 +125,8 @@ class ServeEngine:
     admission the prefill stall lands in those samples.
     """
 
-    def __init__(self, params, arch: ArchConfig, config: ServeConfig):
+    def __init__(self, params, arch: ArchConfig, config: ServeConfig, *,
+                 plan: ParallelPlan | ModelPlan | None = None):
         if is_encdec(arch):
             raise NotImplementedError(
                 "ServeEngine covers decoder-only LMs; encoder-decoder "
@@ -145,7 +151,11 @@ class ServeEngine:
             self.chunk = max(0, int(config.prefill_chunk_tokens))
         self.chunk = min(self.chunk, self.max_len)
         self.chunked = self.chunk > 0
-        self._prefill, self._step = make_serve_fns(arch)
+        # phase-aware, as the reference's: prefill under the plan's
+        # prefill phase, the mixed step under its decode phase; on one
+        # device neither places anything
+        self.plan = plan
+        self._prefill, self._step = make_serve_fns(arch, plan)
         if self.paged:
             pages = -(-self.max_len // self.block_size)
             usable = (int(config.kv_pool_blocks) if config.kv_pool_blocks

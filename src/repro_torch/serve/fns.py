@@ -3,8 +3,11 @@
 ``make_serve_fns`` returns ``(prefill, step)`` over the port's dense,
 MoE, RWKV6, Mamba-hybrid and VLM LMs, and over the encoder-decoder, whose
 step is single-token decode only (as in the reference).
-There is no jit and no plan: PyTorch runs eagerly on one device, and the
-cache is updated in place where the reference donated it to jit.
+There is no jit: PyTorch runs eagerly on one device, and the cache is
+updated in place where the reference donated it to jit.  A plan is taken
+and resolved per phase as the reference's is (arch-checked; prefill under
+its ``prefill`` phase, the step under its ``decode`` phase), and on one
+device places nothing.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import torch
 
 from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
+from repro_torch.models.plan import ModelPlan
+from repro_torch.plans.parallel_plan import ParallelPlan, as_model_plan
 
 
 def _is_kv_path(path) -> bool:
@@ -29,8 +34,12 @@ def _row_views(tree, g: int, paged: bool, path=()):
     return tree if paged and _is_kv_path(path) else tree[:, g:g + 1]
 
 
-def make_serve_fns(arch: ArchConfig):
+def make_serve_fns(arch: ArchConfig,
+                   plan: ParallelPlan | ModelPlan | None = None):
     """Build ``(prefill, step)``.
+
+    ``plan`` is resolved per phase (``as_model_plan``: a ``ParallelPlan``
+    is checked against ``arch``) and places nothing on one device.
 
     ``step(params, tokens, cache, pos, q_lens=None, block_tables=None)``
     is the unified mixed step over a paged cache (``block_tables`` given)
@@ -51,6 +60,7 @@ def make_serve_fns(arch: ArchConfig):
     ``step`` is ``encdec.decode_step`` and raises on ``q_lens`` or
     ``block_tables``.
     """
+    as_model_plan(plan, arch, "decode")        # checks the arch
     mod = model_module(arch)
 
     def prefill(params, batch, cache):

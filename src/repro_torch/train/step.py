@@ -47,12 +47,13 @@ class TrainConfig:
 def _check_unstaged(plan) -> None:
     """A ``ParallelPlan`` (anything with ``stage_for``) whose train phase
     is pipeline-staged needs the 1F1B step, which the port lacks.  Any
-    other plan only places tensors, a no-op on one device."""
+    other plan (a ``ModelPlan``) only places tensors, a no-op on one
+    device."""
     stage_for = getattr(plan, "stage_for", None)
     if stage_for is not None and stage_for("train").num_stages > 1:
         raise NotImplementedError(
-            "a pipeline-staged (1F1B) train step arrives with the plans / "
-            "multi-GPU slice (ROADMAP.md); the port trains unstaged")
+            "a pipeline-staged (1F1B) train step arrives with the "
+            "realization slice (ROADMAP.md A7); the port trains unstaged")
 
 
 def make_train_step(arch: ArchConfig, plan=None,

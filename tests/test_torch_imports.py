@@ -39,7 +39,11 @@ MODULES = [
     "repro_torch.configs.internvl2_76b", "repro_torch.configs.jamba_1_5_large",
     "repro_torch.configs.seamless_m4t_v2",
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.rwkv6_1b6",
-    "repro_torch.core.scan", "repro_torch.data.pipeline",
+    "repro_torch.core.config", "repro_torch.core.cost_model",
+    "repro_torch.core.device", "repro_torch.core.elimination",
+    "repro_torch.core.graph", "repro_torch.core.scan",
+    "repro_torch.core.search", "repro_torch.core.stages",
+    "repro_torch.core.strategies", "repro_torch.data.pipeline",
     "repro_torch.device", "repro_torch.kernels.build",
     "repro_torch.kernels.decode_attention",
     "repro_torch.kernels.flash_attention",
@@ -48,10 +52,12 @@ MODULES = [
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
     "repro_torch.launch.serve", "repro_torch.launch.train",
-    "repro_torch.models.encdec", "repro_torch.models.layers",
-    "repro_torch.models.lm",
+    "repro_torch.models.encdec", "repro_torch.models.graph_export",
+    "repro_torch.models.layers", "repro_torch.models.lm",
+    "repro_torch.models.plan",
     "repro_torch.models.moe", "repro_torch.models.recurrent",
-    "repro_torch.optim.adamw", "repro_torch.serve.engine",
+    "repro_torch.optim.adamw", "repro_torch.plans.parallel_plan",
+    "repro_torch.plans.search", "repro_torch.serve.engine",
     "repro_torch.serve.fns", "repro_torch.train.step",
 ]
 

@@ -188,3 +188,88 @@ def test_copied_pure_python_modules_behave_like_the_reference():
     assert ja.free_blocks == ta.free_blocks
     js, ts = JSlotScheduler(2, "static"), SlotScheduler(2, "static")
     assert js.admissible(3) == ts.admissible(3) == 2
+
+
+def _h100_plan(arch, **shapes):
+    from repro_torch.core import h100_mesh_spec
+    from repro_torch.plans import build_parallel_plan
+    return build_parallel_plan(arch, h100_mesh_spec(1, 2, 4), **shapes)
+
+
+def test_engine_generates_alike_under_every_plan(model):
+    """A bare uniform ModelPlan, a uniform ParallelPlan (the counterpart
+    of the reference's single-device check) and a plan searched for an
+    H100 node place nothing on one device: the tokens equal the engine's
+    without a plan (which equal the reference's, above)."""
+    from repro_torch.models.plan import uniform_plan
+    from repro_torch.plans import ParallelPlan, PlanArchMismatchError
+    arch, _, tp = model
+    trace = _trace(arch.vocab)
+    want = _drive(ServeEngine(tp, arch, _config(ServeConfig,
+                                                "chunked-prefix")),
+                  [Request(uid=i, prompt=p, max_new_tokens=n)
+                   for i, p, n in trace])
+    searched = _h100_plan(arch, phases=("prefill", "decode"), prompt_len=16,
+                          max_batch=3, max_len=32)
+    assert searched.meta["strategy"] == "searched"
+    for plan in (uniform_plan(arch), ParallelPlan.uniform(arch), searched):
+        eng = ServeEngine(tp, arch, _config(ServeConfig, "chunked-prefix"),
+                          plan=plan)
+        assert eng.plan is plan
+        assert _drive(eng, [Request(uid=i, prompt=p, max_new_tokens=n)
+                            for i, p, n in trace]) == want
+    other = C.reduced("olmo_1b")
+    with pytest.raises(PlanArchMismatchError):
+        ServeEngine(tp, arch, _config(ServeConfig, "chunked-prefix"),
+                    plan=ParallelPlan.uniform(other))
+
+
+SERVE_TINY = ["--device", "cpu", "--batch", "2", "--prompt-len", "12",
+              "--gen", "3", "--width", "128", "--depth", "2", "--vocab",
+              "64"]
+
+
+def _served_tokens(out):
+    if "tokens" in out:                        # the lockstep loop
+        return out["tokens"].tolist()
+    return {c.uid: list(c.tokens) for c in out["completions"]}
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "seamless-m4t-large-v2"])
+def test_serve_command_plan_flags_keep_the_tokens(tmp_path, capsys, arch):
+    """Plain; ``--strategy searched --save-plan`` (one device: uniform, as
+    logged); ``--plan`` on the saved file; ``--plan`` on a plan searched
+    for an H100 node (the mesh mismatch logged): the same tokens, through
+    the engine (llama) and the lockstep loop (the encoder-decoder)."""
+    from repro_torch import configs as TC
+    from repro_torch.launch import serve, train
+    base = SERVE_TINY + ["--arch", arch, "--requests", "3",
+                         "--kv-block-size", "4"]
+    want = _served_tokens(serve.main(base))
+    saved, node = tmp_path / "saved.json", tmp_path / "node.json"
+    got = serve.main(base + ["--strategy", "searched", "--save-plan",
+                             str(saved), "--shared-prefix-tokens", "4"])
+    assert _served_tokens(got) == want
+    assert "degrades to uniform" in capsys.readouterr().out
+    _h100_plan(train.reduced_arch(TC.get(arch), 128, 2, 64),
+               prompt_len=12, max_batch=2, max_len=15).save(node)
+    for path in (saved, node):
+        got = serve.main(base + ["--plan", str(path)])
+        assert _served_tokens(got) == want
+        out = capsys.readouterr().out
+        assert "plan: loaded [" in out
+        assert ("plan searched for mesh" in out) == (path == node)
+
+
+def test_serve_command_refuses_a_staged_decode_plan(tmp_path):
+    from repro_torch import configs as TC
+    from repro_torch.core.stages import StageAssignment
+    from repro_torch.launch import serve, train
+    from repro_torch.plans import ParallelPlan
+    arch = train.reduced_arch(TC.get("llama3.2-1b"), 128, 2, 64)
+    plan = ParallelPlan.uniform(arch)
+    plan = ParallelPlan(arch=plan.arch, phases=plan.phases,
+                        stages={"decode": StageAssignment((0, 1, 2))})
+    path = plan.save(tmp_path / "staged.json")
+    with pytest.raises(ValueError, match="pipeline-staged"):
+        serve.main(SERVE_TINY + ["--plan", str(path)])

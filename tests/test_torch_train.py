@@ -419,16 +419,75 @@ def test_train_command_runs_on_cpu_and_resumes(tmp_path, capsys, arch):
     assert [h["step"] for h in hist] == [3]
 
 
-@pytest.mark.parametrize("flag", [["--plan", "p.json"],
-                                  ["--save-plan", "p.json"],
-                                  ["--pipeline-stages", "2"],
+def _tiny_arch():
+    from repro_torch.launch import train
+    return train.reduced_arch(TC.get("llama3.2-1b"), 64, 2, 64)
+
+
+def _staged_plans(tmp_path) -> dict:
+    """Plans for ``TINY``'s arch whose train phase is pipeline-staged:
+    searched with two stages on a data 4 x model 2 mesh, and a
+    prefill-only plan staged by hand, to which train falls back."""
+    from repro_torch.core import h100_mesh_spec
+    from repro_torch.core.stages import StageAssignment
+    from repro_torch.models.plan import uniform_plan
+    from repro_torch.plans import (ParallelPlan, arch_fingerprint,
+                                   build_parallel_plan)
+    arch = _tiny_arch()
+    staged = build_parallel_plan(arch, h100_mesh_spec(1, 4, 2),
+                                 phases=("train",), train_seq=16,
+                                 train_batch=2, train_stages=2)
+    assert staged.stage_for("train").num_stages == 2
+    prefill = ParallelPlan(arch=arch_fingerprint(arch),
+                           phases={"prefill": uniform_plan(arch)},
+                           stages={"prefill": StageAssignment((0, 1, 2))})
+    return {"staged": str(staged.save(tmp_path / "staged.json")),
+            "prefill": str(prefill.save(tmp_path / "prefill.json")),
+            "out": str(tmp_path / "out.json")}
+
+
+@pytest.mark.parametrize("flag", [["--plan", "{staged}"],
+                                  ["--plan", "{prefill}"],
+                                  ["--plan", "{staged}", "--save-plan",
+                                   "{out}"],
                                   ["--device-profile", "d.json"],
                                   ["--kernel-backend", "ref"],
                                   ["--autotune-cache-dir", "x"]])
-def test_train_command_names_the_slice_of_a_later_flag(flag):
+def test_train_command_names_the_slice_of_a_later_flag(flag, tmp_path):
+    """A pipeline-staged train plan (loaded, or reached by the phase
+    fallback) needs the realization slice; the profiler's and the
+    dispatcher's flags name theirs."""
     from repro_torch.launch import train
+    files = _staged_plans(tmp_path)
     with pytest.raises(NotImplementedError, match="slice"):
-        train.main(TINY + flag)
+        train.main(TINY + [f.format(**files) for f in flag])
+
+
+@pytest.mark.parametrize("source", ["command", "searched-h100"])
+def test_train_command_under_a_plan_keeps_the_losses(tmp_path, capsys,
+                                                     source):
+    """On one device a plan places nothing: ``--strategy search
+    --save-plan`` (degraded to uniform, as logged) and then ``--plan`` on
+    that file, or ``--plan`` on a plan searched for an H100 node (the mesh
+    mismatch logged), give losses bitwise equal to a run without one."""
+    from repro_torch.core import h100_mesh_spec
+    from repro_torch.launch import train
+    from repro_torch.plans import build_parallel_plan
+    base = TINY + ["--ckpt-every", "0", "--strategy", "uniform"]
+    want = train.main(base)
+    capsys.readouterr()
+    path = tmp_path / "plan.json"
+    if source == "command":
+        train.main(TINY + ["--ckpt-every", "0", "--save-plan", str(path)])
+        assert "degrades to uniform" in capsys.readouterr().out
+    else:
+        build_parallel_plan(_tiny_arch(), h100_mesh_spec(1, 2, 4),
+                            train_seq=16, train_batch=2).save(path)
+    got = train.main(TINY + ["--ckpt-every", "0", "--plan", str(path)])
+    out = capsys.readouterr().out
+    assert "plan: loaded [" in out
+    assert ("plan searched for mesh" in out) == (source != "command")
+    assert got == want
 
 
 @pytest.mark.parametrize("name", ["seamless_m4t_v2", "internvl2_76b"])
