@@ -133,7 +133,23 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    ``--strategy searched --save-plan``, ``--plan`` on that file and
    ``--plan`` on the node plan (the paged decode launched, the tokens
    equal).
-7. the ``kernels`` JSON line, the card's name and power limit, and the
+7. realize: a searched plan realized on a one-device ``("data",
+   "model")`` mesh (a world-1 ``nccl`` process group, its store under
+   ``build/``; DTensor params, batch, cache and ZeRO-1 moments, the
+   model under ``use_mesh``), each run beside the same run unrealized:
+   two train steps of the small llama, rwkv6, olmoe and jamba under their
+   ``model`` baseline plans (heads, d_ff, experts split on the model
+   axes, each a whole tensor on this mesh), the small llama engine in its
+   paged, int8 and dense modes under a searched serve plan, then
+   llama3.2-1b at its published size: 2 train steps at 8 x 256 under the
+   plan phase's saved 2 x 4 node plan and the 6-request paged serve run
+   under its decode phase.  Losses and tokens must be equal (a difference
+   is held to 1e-6 relative and reported), and every kernel's launch
+   count equal to the unrealized run's: between them these runs launch
+   all eight kernel bodies, each on the shard-local path.  Step time,
+   peak memory and inter-token latency both ways (the host's DTensor
+   dispatch overhead).  Its launches are not added to the kernels line.
+8. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -988,7 +1004,7 @@ RWKV_MODES = {"a": {"kv_quant": "int8"}, "b": {"kv_block_size": 0},
 
 def serve_once(torch, params, arch, requests, *, mode, dtype, device,
                max_batch=8, max_len=1024, modes=SERVE_MODES, engine=None,
-               watch=contextlib.nullcontext):
+               watch=contextlib.nullcontext, plan=None):
     """One engine run with the launch counts reset just before it and read
     just after (the run alone inside the context ``watch()``); returns the
     measurements and the engine."""
@@ -997,7 +1013,7 @@ def serve_once(torch, params, arch, requests, *, mode, dtype, device,
     from repro_torch.serve import ServeConfig
     kw = modes[mode]
     eng = (engine or recording_engine())(params, arch, ServeConfig(
-        max_batch=max_batch, max_len=max_len, dtype=dtype, **kw))
+        max_batch=max_batch, max_len=max_len, dtype=dtype, **kw), plan=plan)
     warm_s = eng.warmup(sorted({len(r.prompt) for r in requests}))
     if device.type == "cuda":
         torch.cuda.synchronize()
@@ -1069,8 +1085,8 @@ def record_routing(log: dict):
     from repro_torch.models import moe
     real = moe.route
 
-    def route(p, x, arch):
-        out = real(p, x, arch)
+    def route(p, x, arch, *cfg):
+        out = real(p, x, arch, *cfg)
         rows = (log["rows"].get(x.shape[0]) or log["rows"].get("chunk")
                 or [None] * x.shape[0])           # warmup: no request
         log["calls"].append((out[1].cpu(), list(rows)))
@@ -1735,15 +1751,15 @@ def cross_attention_watch(log: dict, marker, marked: range):
     from repro_torch.models import lm
     real = lm._cross_attend
 
-    def cross(h, lp, arch, positions, memory):
+    def cross(h, lp, arch, positions, memory, *cfg):
         if memory is None:
-            return real(h, lp, arch, positions, memory)
+            return real(h, lp, arch, positions, memory, *cfg)
         mark = log["calls"] in marked
         log["calls"] += 1
         if not mark:
-            return real(h, lp, arch, positions, memory)
+            return real(h, lp, arch, positions, memory, *cfg)
         marker()
-        out = real(h, lp, arch, positions, memory)
+        out = real(h, lp, arch, positions, memory, *cfg)
         marker()
         log["marked"] += 1
         return out
@@ -2592,6 +2608,197 @@ def phase_plan(torch, device):
     return counts
 
 
+# the realize phase: the small models' train runs (batch x seq, steps), the
+# published llama3.2-1b's, and the relative difference a realized loss may
+# show (a one-device mesh redistributes nothing, so equal is expected)
+REALIZE_SMALL_TRAIN = (4, 128, 2)
+REALIZE_FULL_TRAIN = (8, 256, 2)
+REALIZE_TOL = 1e-6
+REALIZE_SERVE_MODES = ("a", "c", "dense")
+
+
+def _realize_train(torch, arch, plan, mesh, batch, seq, steps, device):
+    """``steps`` AdamW steps from the seeded weights, unrealized (``mesh``
+    None) or realized on ``mesh`` (params by ``param_pspecs``, ZeRO-1
+    moments, each batch by ``batch_pspecs``): losses, step times, peak
+    memory and the launch counts of the steps alone."""
+    from repro_torch.core import use_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step, realize
+    params = init_model(torch, arch, device,
+                        torch.Generator(device=device).manual_seed(SEED))
+    batches = batches_for(torch, arch, batch, seq, steps, device)
+    if mesh is None:
+        opt = adamw_init(params)
+    else:
+        params, opt, place = realize(params, arch, plan, mesh)
+        batches = [place(b) for b in batches]
+    step = make_train_step(arch, plan, TrainConfig(
+        optimizer=AdamWConfig(total_steps=steps, **TRAIN_OPT), **TRAIN_CFG))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        with use_mesh(mesh):
+            params, opt, met = step(params, opt, b)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del params, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": losses, "step_ms": [t * 1e3 for t in times],
+            "peak_gib": peak / 2**30,
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
+def _realize_check(tag, plain, real, what):
+    """Equal (or within REALIZE_TOL relative) ``what`` and equal launch
+    counts, or a failure naming the difference."""
+    a, b = plain[what], real[what]
+    if isinstance(a, list) and a and isinstance(a[0], float):
+        bitwise = a == b
+        close = len(a) == len(b) and all(
+            abs(x - y) <= REALIZE_TOL * max(1.0, abs(x)) for x, y in zip(a, b))
+    else:
+        bitwise = close = a == b
+    if not close:
+        fail(f"realize-{tag}: {what} {b} realized, {a} unrealized")
+    if plain["launches"] != real["launches"]:
+        fail(f"realize-{tag}: launches {real['launches']} realized, "
+             f"{plain['launches']} unrealized")
+    return bitwise
+
+
+def phase_realize(torch, device):
+    """A searched plan realized on a one-device mesh against the same runs
+    unrealized (see the module docstring, phase 7)."""
+    import dataclasses
+    import torch.distributed as dist
+    # the experimental API the realized model runs under must exist here
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch import configs
+    from repro_torch.core import h100_mesh_spec, use_mesh
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.plans import (ParallelPlan, baseline_phase_plan,
+                                   build_parallel_plan)
+    store = ROOT / "build" / "realize-store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                            rank=0, world_size=1)
+    node = h100_mesh_spec(1, 2, 4)
+    try:
+        mesh = make_smoke_mesh(1, 1, "cuda")
+        emit({"phase": "realize-mesh", "torch": torch.__version__,
+              "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+              "implicit_replication": implicit_replication.__module__})
+        small = {"llama": dataclasses.replace(
+                     configs.get("llama3.2-1b"), n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=2, d_ff=512, vocab=512,
+                     head_dim=64),
+                 "rwkv6": dataclasses.replace(
+                     configs.get("rwkv6-1.6b"), n_layers=2, d_model=256,
+                     n_heads=4, n_kv_heads=4, d_ff=512, vocab=512),
+                 "olmoe": small_moe_arch("olmoe"),
+                 "jamba": small_moe_arch("jamba")}
+        B, S, steps = REALIZE_SMALL_TRAIN
+        for tag, arch in small.items():
+            plan, _ = baseline_phase_plan(arch, node, "train", "model",
+                                          seq_len=S, batch=B)
+            plain = _realize_train(torch, arch, plan, None, B, S, steps,
+                                   device)
+            real = _realize_train(torch, arch, plan, mesh, B, S, steps,
+                                  device)
+            bitwise = _realize_check(f"train-{tag}", plain, real, "loss")
+            emit({"phase": f"realize-train-{tag}", "plan": "model",
+                  "batch": B, "seq": S, "unrealized": plain,
+                  "realized": real, "losses_bitwise_equal": bitwise})
+
+        # the small llama engine under a searched serve plan
+        arch = small["llama"]
+        plan = build_parallel_plan(arch, node, phases=("prefill", "decode"),
+                                   prompt_len=512, max_batch=4,
+                                   max_len=1024)
+        params = init_model(torch, arch, device,
+                            torch.Generator(device=device).manual_seed(SEED))
+        reqs = make_requests(arch.vocab, n=6, gen=8)
+        for mode in REALIZE_SERVE_MODES:
+            runs = {}
+            for tag, ctx in (("unrealized", contextlib.nullcontext()),
+                             ("realized", use_mesh(mesh))):
+                with ctx:
+                    res, eng, toks = serve_once(
+                        torch, params, arch, reqs, mode=mode,
+                        dtype=torch.float32, device=device, max_batch=4,
+                        max_len=1024, plan=plan)
+                runs[tag] = {"tokens": toks, "launches": res["launches"],
+                             **{k: res[k] for k in ("wall_s", "tok_s",
+                                                    "itl_p50_ms",
+                                                    "itl_p99_ms")}}
+                del eng
+                gc.collect()
+            _realize_check(f"serve-{mode}", runs["unrealized"],
+                           runs["realized"], "tokens")
+            emit({"phase": f"realize-serve-{mode}", "plan": "searched",
+                  "tokens_equal": runs["unrealized"]["tokens"]
+                  == runs["realized"]["tokens"],
+                  **{t: {k: v for k, v in r.items() if k != "tokens"}
+                     for t, r in runs.items()}})
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # llama3.2-1b at its published size under the node plan
+        arch = configs.get("llama3.2-1b")
+        saved = ParallelPlan.load(OUT / "plan-llama3.2-1b-h100-2x4.json",
+                                  arch=arch)
+        B, S, steps = REALIZE_FULL_TRAIN
+        plan = saved.plan_for("train")
+        plain = _realize_train(torch, arch, plan, None, B, S, steps, device)
+        real = _realize_train(torch, arch, plan, mesh, B, S, steps, device)
+        bitwise = _realize_check("train-llama3.2-1b", plain, real, "loss")
+        emit({"phase": "realize-train-llama3.2-1b", "plan": "node 2x4",
+              "batch": B, "seq": S, "unrealized": plain, "realized": real,
+              "losses_bitwise_equal": bitwise,
+              "step_overhead_ms": real["step_ms"][-1]
+              - plain["step_ms"][-1]})
+        params = init_model(torch, arch, device,
+                            torch.Generator(device=device).manual_seed(SEED))
+        reqs = make_requests(arch.vocab, n=6, gen=8)
+        runs = {}
+        for tag, ctx in (("unrealized", contextlib.nullcontext()),
+                         ("realized", use_mesh(mesh))):
+            with ctx:
+                res, eng, toks = serve_once(
+                    torch, params, arch, reqs, mode="a",
+                    dtype=torch.float32, device=device, max_batch=4,
+                    max_len=1024, plan=saved)
+            runs[tag] = {"tokens": toks, "launches": res["launches"],
+                         **{k: res[k] for k in ("wall_s", "tok_s", "steps",
+                                                "itl_p50_ms", "itl_p99_ms")}}
+            del eng
+            gc.collect()
+        _realize_check("serve-llama3.2-1b", runs["unrealized"],
+                       runs["realized"], "tokens")
+        emit({"phase": "realize-serve-llama3.2-1b", "plan": "node 2x4",
+              "tokens_equal": runs["unrealized"]["tokens"]
+              == runs["realized"]["tokens"],
+              "itl_overhead_ms": runs["realized"]["itl_p50_ms"]
+              - runs["unrealized"]["itl_p50_ms"],
+              **{t: {k: v for k, v in r.items() if k != "tokens"}
+                 for t, r in runs.items()}})
+        del params
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+
+
 # --------------------------------------------------------------------------- #
 def main() -> int:
     try:
@@ -2808,6 +3015,7 @@ def main() -> int:
         ("serve-internvl2", lambda: phase_serve_internvl2(torch, device)),
         ("train", lambda: phase_train(torch, device)),
         ("plan", lambda: phase_plan(torch, device)),
+        ("realize", lambda: phase_realize(torch, device)),
     ]
     counts, seconds = {}, {}
     for name, fn in steps:

@@ -13,6 +13,10 @@ Layout:  <dir>/step_<k>/{arrays.npz, MANIFEST.json}
 Writes go to ``step_<k>.tmp`` and are atomically renamed: a crash at any
 point leaves either the previous complete checkpoint or an ignorable tmp.
 Restored leaves take the dtype, shape and device of the ``like`` tree.
+
+On a realized plan (DTensor leaves, a process group) every rank gathers
+the full tensors, rank 0 alone writes them, and a restore re-places each
+leaf as its ``like`` leaf is laid out.
 """
 
 from __future__ import annotations
@@ -26,6 +30,18 @@ from pathlib import Path
 import numpy as np
 
 from repro_torch.bridge import params_from_jax, params_to_numpy
+from repro_torch.core.sharding import is_dtensor, whole
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()
 
 
 def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
@@ -35,7 +51,7 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
         for k in sorted(tree):
             flat.update(_flatten(tree[k], f"{prefix}{k}/"))
         return flat
-    return {prefix[:-1]: params_to_numpy(tree)}
+    return {prefix[:-1]: params_to_numpy(whole(tree))}
 
 
 def save_tree(tree, path: Path) -> None:
@@ -46,7 +62,12 @@ def _restore(like, data, prefix: str = ""):
     if isinstance(like, dict):
         return {k: _restore(v, data, f"{prefix}{k}/") for k, v in like.items()}
     arr = np.asarray(data[prefix[:-1]]).reshape(tuple(like.shape))
-    return params_from_jax(arr, like.device).to(like.dtype)
+    t = params_from_jax(arr, like.device).to(like.dtype)
+    if is_dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        t = distribute_tensor(t, like.device_mesh, like.placements,
+                              src_data_rank=None)
+    return t
 
 
 def restore_tree(like, path: Path):
@@ -66,10 +87,13 @@ class CheckpointManager:
     def save(self, step: int, state: dict) -> Path:
         final = self.dir / f"step_{step:08d}"
         tmp = self.dir / f"step_{step:08d}.tmp"
+        flat = _flatten(state)      # every rank: gathers realized leaves
+        if _rank() != 0:
+            _barrier()
+            return final
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        flat = _flatten(state)
         np.savez(tmp / "arrays.npz", **flat)
         manifest = {
             "step": step,
@@ -85,6 +109,7 @@ class CheckpointManager:
             shutil.rmtree(final)
         os.replace(tmp, final)
         self._gc()
+        _barrier()
         return final
 
     def _gc(self) -> None:

@@ -13,8 +13,9 @@ Public API:
         data_parallel, model_parallel, owt,
     )
 
-The reference's sharding helpers (``constrain``, ``current_mesh``,
-``pspec``, ``sharding``, ``use_mesh``) come with the realization slice.
+and the sharding helpers that realize a plan as DTensor placements
+(``constrain``, ``current_mesh``, ``pspec``, ``sharding``, ``use_mesh``;
+:mod:`repro_torch.core.sharding`).
 """
 
 from .config import DATA_DIMS, PARAM_DIMS, LayerConfig, enumerate_configs
@@ -39,6 +40,8 @@ from .elimination import GraphOptimizer, brute_force_optimize
 from .graph import CompGraph, Edge, LayerNode, Strategy, TensorSpec, uniform_strategy
 from .scan import remat_time_scan
 from .search import SearchOptions, config_space, find_strategy, find_strategy_brute_force
+from .sharding import (constrain, constrain_tree, current_mesh, pspec,
+                       sharding, use_mesh)
 from .strategies import BASELINES, data_parallel, model_parallel, owt
 
 __all__ = [
@@ -50,4 +53,6 @@ __all__ = [
     "enumerate_configs", "find_strategy", "find_strategy_brute_force",
     "h100_mesh_spec", "model_parallel", "multi_pod_mesh_spec", "owt",
     "remat_time_scan", "single_pod_mesh_spec", "uniform_strategy",
+    "constrain", "constrain_tree", "current_mesh", "pspec", "sharding",
+    "use_mesh",
 ]

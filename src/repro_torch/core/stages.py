@@ -20,8 +20,8 @@ Stage granularity is the *pattern unit* (``arch.n_units`` scanned units
 of ``period`` layers each): that is the granularity the realized
 ``ModelPlan`` stacks parameters at, so a contiguous unit range maps
 directly onto a slice of the stacked param leaves — which is what lets
-the realization (the reference's ``repro.plans.shardings``; the port's
-arrives with the realization slice) place each stage's parameter group on its
+the realization (``repro_torch.plans.shardings``, the reference's
+``repro.plans.shardings``) place each stage's parameter group on its
 stage sub-mesh with a plain leading-dim PartitionSpec.
 """
 

@@ -22,14 +22,15 @@ already exceeds (513 slots x 2048 x 4 B); these have no such limit.
   is never read.  Plain version
   :func:`repro_torch.kernels.ref.moe_gather_ref`.
 
-:func:`moe_dispatch_combine` runs slot assignment (plain torch), the
-scatter kernel, the expert FFN (``torch.einsum``) and the gather kernel:
-the plain op :func:`repro_torch.kernels.ref.moe_scatter` with the two
-kernels in place of their plain versions.
-Like the reference's ``with_reference_vjp``, the kernels are
-forward-only: :class:`MoEDispatchCombine` runs them forward and, in the
-backward pass, differentiates the plain ``moe_dense_ref`` at the saved
-inputs.
+:class:`MoEScatter` and :class:`MoEGather` make each kernel
+differentiable on its own: like the reference's ``with_reference_vjp``,
+the kernels are forward-only, and each Function's backward differentiates
+its plain version at the saved inputs.  The op
+(:func:`repro_torch.kernels.ops.moe_dispatch_combine`) is the plain
+:func:`repro_torch.kernels.ref.moe_scatter` with the two Functions in
+place of the plain scatter and gather, so the expert FFN between them is
+differentiated by autograd as it ran (on a realized plan, on the expert
+shards).
 """
 
 from __future__ import annotations
@@ -114,47 +115,41 @@ def moe_gather_cuda(out, lin, gates):
     return y
 
 
-def moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo, *,
-                      capacity: int):
-    """The op on the card: :func:`repro_torch.kernels.ref.moe_scatter` with
-    the scatter and gather kernels in place of their plain versions."""
-    return ref.moe_scatter(x, gate_vals, expert_idx, wi, wg, wo,
-                           capacity=capacity, scatter_rows=moe_scatter_cuda,
-                           gather_rows=moe_gather_cuda)
-
-
-class MoEDispatchCombine(torch.autograd.Function):
-    """Forward: the CUDA kernels.  Backward: the gradient of the plain
-    :func:`~repro_torch.kernels.ref.moe_dense_ref` at the saved inputs
-    (none for the integer ``expert_idx``)."""
+class MoEScatter(torch.autograd.Function):
+    """Forward: the scatter kernel; backward: the gradient of the plain
+    :func:`~repro_torch.kernels.ref.moe_scatter_ref` at the saved x."""
 
     @staticmethod
-    def forward(ctx, x, gate_vals, expert_idx, wi, wg, wo, capacity):
-        ctx.save_for_backward(x, gate_vals, expert_idx, wi, wg, wo)
-        ctx.capacity = capacity
-        return moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo,
-                                 capacity=capacity)
+    def forward(ctx, x, lin, n_slots):
+        ctx.save_for_backward(x, lin)
+        ctx.n_slots = n_slots
+        return moe_scatter_cuda(x.contiguous(), lin.contiguous(), n_slots)
 
     @staticmethod
     def backward(ctx, g):
-        x, gate_vals, expert_idx, wi, wg, wo = ctx.saved_tensors
-        args = [a.detach().requires_grad_() for a in (x, gate_vals, wi, wg,
-                                                      wo)]
+        x, lin = ctx.saved_tensors
+        xr = x.detach().requires_grad_()
         with torch.enable_grad():
-            out = ref.moe_dense_ref(args[0], args[1], expert_idx, *args[2:],
-                                    capacity=ctx.capacity)
-        gx, gg, gwi, gwg, gwo = torch.autograd.grad(out, args, g)
-        return gx, gg, None, gwi, gwg, gwo, None
+            out = ref.moe_scatter_ref(xr, lin, ctx.n_slots)
+        return torch.autograd.grad(out, xr, g)[0], None, None
 
 
-def moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg, wo, *,
-                         capacity: int):
-    """The kernels, differentiable when autograd needs it: through
-    :class:`MoEDispatchCombine` when a gradient is being recorded, else
-    launched directly."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gate_vals, wi, wg, wo)):
-        return MoEDispatchCombine.apply(x, gate_vals, expert_idx, wi, wg, wo,
-                                        capacity)
-    return moe_dispatch_cuda(x, gate_vals, expert_idx, wi, wg, wo,
-                             capacity=capacity)
+class MoEGather(torch.autograd.Function):
+    """Forward: the gather kernel; backward: the gradient of the plain
+    :func:`~repro_torch.kernels.ref.moe_gather_ref` for ``out`` and
+    ``gates``."""
+
+    @staticmethod
+    def forward(ctx, out, lin, gates):
+        ctx.save_for_backward(out, lin, gates)
+        return moe_gather_cuda(out.contiguous(), lin.contiguous(),
+                               gates.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        out, lin, gates = ctx.saved_tensors
+        args = [out.detach().requires_grad_(), gates.detach().requires_grad_()]
+        with torch.enable_grad():
+            y = ref.moe_gather_ref(args[0], lin, args[1])
+        go, gg = torch.autograd.grad(y, args, g)
+        return go, None, gg

@@ -15,11 +15,25 @@ plain version), so no caller gets an output detached from its inputs.
 The mixed-step forms of the dense and paged decode ops (5-d q, one
 kv_len per query token) are plain torch on every device, as their
 counterparts are XLA in the reference (:mod:`repro_torch.kernels.mha_stream`).
+
+On a realized plan (DTensor inputs) every op runs on local shards
+(:func:`repro_torch.core.sharding.run_local`): attention and WKV6 over
+batch and heads, the selective scan over batch and channels, the MoE
+scatter and gather over batch, the expert FFN between them on the
+expert shards (:func:`moe_dispatch_combine`).  An input
+split on any other dim is first gathered to such a layout, as GSPMD does
+around a custom call; on the card the shard then launches its kernel or
+raises, and launches count per rank.  Where a GQA layer's KV heads do not
+divide the heads' degree, K/V stay whole and each shard takes the KV
+heads of its query heads' global indices
+(:func:`~repro_torch.core.sharding.kv_heads_for`).
 """
 
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.sharding import is_dtensor, kv_heads_for, run_local
 
 from . import decode_attention as _decode
 from . import flash_attention as _flash
@@ -29,6 +43,7 @@ from . import moe_dispatch as _moe
 from . import paged_decode_attention as _paged
 from . import ref
 from . import rwkv6_scan as _wkv6
+from .mha_chunked import mha_chunked
 
 _COUNTERS = (_flash.launches, _decode.launches, _paged.launches,
              _moe.launches, _wkv6.launches, _mamba.launches)
@@ -57,6 +72,17 @@ supports_wkv6 = _wkv6.supports
 supports_mamba_scan = _mamba.supports
 
 
+# each dim's role on a realized plan (see run_local)
+_BHSD = ("batch", "heads", None, None)
+_KV = ("batch", "kv_heads", None, None)
+_POOL = (None, None, "heads", None)
+_SCALE = (None, None, "heads")
+
+
+def _dist(*ts) -> bool:
+    return any(is_dtensor(t) for t in ts)
+
+
 def _route(t: torch.Tensor, op: str) -> bool:
     """True for CUDA (launch the kernel), False for CPU (plain version)."""
     if t.is_cuda:
@@ -71,6 +97,15 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q=None,
     """q: (B, H, S, D); k/v: (B, KH, T, D) -> (B, H, S, D).  ``block_q`` /
     ``block_k`` are accepted for signature parity; the CUDA kernel's
     tiles are fixed."""
+    if _dist(q, k, v):
+        G = q.shape[1] // k.shape[1]
+
+        def local(off, ql, kl, vl):
+            kl, _ = kv_heads_for(kl, off, ql.shape[1], G, 1)
+            vl, _ = kv_heads_for(vl, off, ql.shape[1], G, 1)
+            return flash_attention(ql.contiguous(), kl.contiguous(),
+                                   vl.contiguous(), causal=causal)
+        return run_local(local, [q, k, v], [_BHSD, _KV, _KV], _BHSD)
     if _route(q, "flash_attention"):
         return _flash.flash_attention(q, k, v, causal=causal)
     return ref.attention_ref(q, k, v, causal=causal)
@@ -84,10 +119,19 @@ def decode_attention(q, k, v, kv_len, *, block_k=None):
     (B, KH, G, T, D), kv_len (B, T)) streams in plain torch on every
     device, as its counterpart is XLA in the reference."""
     if q.ndim == 5:
+        if _dist(q, k, v):
+            return run_local(
+                lambda *a: mha_stream.mixed_decode_attention(*a),
+                [q, k, v, kv_len],
+                [_BHSD + (None,), _BHSD, _BHSD, ("batch", None)],
+                _BHSD + (None,))
         return mha_stream.mixed_decode_attention(q, k, v, kv_len,
                                                  block_k=block_k)
     B, KH, G, D = q.shape
     kv_len = ref.normalize_kv_len(kv_len, B, q.device)
+    if _dist(q, k, v):
+        return run_local(decode_attention, [q, k, v, kv_len],
+                         [_BHSD, _BHSD, _BHSD, ("batch",)], _BHSD)
     if _route(q, "decode_attention"):
         return _decode.decode_attention_cuda(q, k, v, kv_len)
     out = ref.decode_attention_ref(q.reshape(B, KH * G, D), k, v, kv_len)
@@ -113,6 +157,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
             raise ValueError(
                 f"paged_decode_attention: scale shapes {got} do not match "
                 f"the pool's (NB, block_size, KH) = {want}")
+    if _dist(q, k_pool, v_pool):
+        lead = _BHSD + ((None,) if q.ndim == 5 else ())
+        kvl = ("batch", None) if q.ndim == 5 else ("batch",)
+        if q.ndim == 4:
+            kv_len = ref.normalize_kv_len(kv_len, q.shape[0], q.device)
+        scales = None if k_scale is None else _SCALE
+        return run_local(
+            lambda q_, kp, vp, bt, kl, ks, vs: paged_decode_attention(
+                q_, kp, vp, bt, kl, k_scale=ks, v_scale=vs),
+            [q, k_pool, v_pool, block_tables, kv_len, k_scale, v_scale],
+            [lead, _POOL, _POOL, ("batch", None), kvl, scales, scales], lead)
     if q.ndim == 5:
         return mha_stream.paged_mixed_attention(
             q, k_pool, v_pool, block_tables, kv_len, k_scale=k_scale,
@@ -127,19 +182,72 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len, *,
                                           v_scale=v_scale)
 
 
+_TOKENS = ("batch", None, "d_model")
+
+
+def _rows(fn_cuda, fn_ref):
+    """The kernel on a CUDA tensor (differentiable through its Function),
+    the plain version on a CPU one."""
+    return lambda t, *a: (fn_cuda if _route(t, "moe") else fn_ref)(t, *a)
+
+
+def _scatter_local(x, lin, n_slots):
+    """The scatter on each shard's batch rows (and model columns)."""
+    fn = _rows(_moe.MoEScatter.apply, ref.moe_scatter_ref)
+    return run_local(lambda x_, l_: fn(x_, l_, n_slots), [x, lin],
+                     [_TOKENS, ("batch", None, None)], _TOKENS,
+                     allowed=("batch", "d_model"))
+
+
+def _gather_local(out, lin, gates):
+    """The gather on each shard's batch rows (and model columns)."""
+    fn = _rows(_moe.MoEGather.apply, ref.moe_gather_ref)
+    return run_local(fn, [out, lin, gates],
+                     [_TOKENS, ("batch", None, None), ("batch", None, None)],
+                     _TOKENS, allowed=("batch", "d_model"))
+
+
 def moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg, wo, *,
-                         capacity: int):
+                         capacity: int, constrain=None):
     """MoE dispatch + expert FFN + combine; x: (B, S, D); gate_vals /
     expert_idx: (B, S, K); wi/wg: (E, D, F); wo: (E, F, D) -> y (B, S, D).
     GShard capacity per batch row; assignments past ``capacity`` are
-    dropped.  On the card: the scatter and gather kernels around a torch
-    expert FFN; on the CPU: the plain scatter/gather
-    (:func:`repro_torch.kernels.ref.moe_scatter`)."""
-    if _route(x, "moe_dispatch_combine"):
-        return _moe.moe_dispatch_combine(x, gate_vals, expert_idx, wi, wg,
-                                         wo, capacity=capacity)
+    dropped.  The plain op :func:`repro_torch.kernels.ref.moe_scatter`
+    with the scatter and gather kernels in place of their plain versions
+    on the card (each through its autograd Function), the plain versions
+    on the CPU; the expert FFN between them is torch on every device.
+
+    ``constrain(tensor, dims)`` applies the layer's sharding constraints
+    at the reference's points: on a realized plan (DTensor ``x``) the
+    scatter and the gather run shard-local over batch with all E slots
+    local, while the expert FFN runs as DTensor einsums on the expert
+    shards the constraints lay out (expert parallelism)."""
     return ref.moe_scatter(x, gate_vals, expert_idx, wi, wg, wo,
-                           capacity=capacity)
+                           capacity=capacity, scatter_rows=_scatter_local,
+                           gather_rows=_gather_local, constrain=constrain)
+
+
+def chunked_attention(q, k, v, *, causal: bool, q_positions, kv_positions):
+    """The positions-aware chunked core
+    (:func:`~repro_torch.kernels.mha_chunked.mha_chunked`) over GQA K/V:
+    q (B, Sq, H, D); k/v (B, Skv, KH, D), repeated over each KV head's
+    query heads.  Plain torch on every device (XLA in the reference)."""
+    G = q.shape[2] // k.shape[2]
+
+    def local(off, ql, kl, vl, qp, kp):
+        kl, g = kv_heads_for(kl, off, ql.shape[2], G, 2)
+        vl, _ = kv_heads_for(vl, off, ql.shape[2], G, 2)
+        if g > 1:
+            kl = kl.repeat_interleave(g, dim=2)
+            vl = vl.repeat_interleave(g, dim=2)
+        return mha_chunked(ql, kl, vl, causal=causal, q_positions=qp,
+                           kv_positions=kp)
+    q_r = ("batch", None, "heads", None)
+    kv_r = ("batch", None, "kv_heads", None)
+    pos_r = lambda p: ("batch", None) if p.ndim == 2 else (None,)
+    return run_local(local, [q, k, v, q_positions, kv_positions],
+                     [q_r, kv_r, kv_r, pos_r(q_positions),
+                      pos_r(kv_positions)], q_r)
 
 
 def wkv6(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
@@ -148,6 +256,15 @@ def wkv6(r, k, v, w, u, *, chunk: int = 64, initial_state=None,
     plus the final (B, H, N, N) float32 state when ``return_state``.  The
     kernel takes the stateless form only (as the reference's does); the
     stateful form runs the plain version on every device."""
+    if _dist(r, k, v, w):
+        stateful = initial_state is not None or return_state
+        return run_local(
+            lambda *a: wkv6(*a[:5], chunk=chunk, initial_state=a[5],
+                            return_state=return_state),
+            [r, k, v, w, u, initial_state],
+            [_BHSD] * 4 + [("heads", None),
+                           _BHSD if initial_state is not None else None],
+            [_BHSD, _BHSD] if stateful and return_state else _BHSD)
     if initial_state is not None or return_state:
         return ref.wkv6_scan(r, k, v, w, u, chunk=chunk,
                              initial_state=initial_state,
@@ -164,6 +281,18 @@ def mamba_scan(dt, Bm, Cm, x, A, D, *, chunk: int = 64, initial_state=None,
     when ``return_state``.  A CUDA tensor goes to the kernel in every form
     (stateless, an initial state in, the final state out); a CPU tensor to
     the plain version."""
+    if _dist(dt, x):
+        t_r = ("batch", None, "chan")
+        s_r = ("batch", "chan", None)
+        return run_local(
+            lambda *a: mamba_scan(*a[:6], chunk=chunk, initial_state=a[6],
+                                  return_state=return_state),
+            [dt, Bm, Cm, x, A, D, initial_state],
+            [t_r, ("batch", None, None), ("batch", None, None), t_r,
+             ("chan", None), ("chan",),
+             s_r if initial_state is not None else None],
+            [t_r, s_r] if return_state else t_r,
+            allowed=("batch", "chan"), lead=3)
     if _route(x, "mamba_scan"):
         return _mamba.mamba_scan(dt, Bm, Cm, x, A, D, chunk=chunk,
                                  initial_state=initial_state,

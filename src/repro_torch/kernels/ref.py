@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.scan import remat_time_scan
+from repro_torch.core.sharding import run_local
 
 NEG_INF = -1e30
 
@@ -238,11 +239,19 @@ def moe_positions(expert_idx, E: int, C: int):
     return lin.to(torch.int32), keep
 
 
-def expert_ffn(buf, wi, wg, wo):
-    """buf: (B, E, C, D) -> (B, E, C, D), each expert's SwiGLU FFN."""
+def _no_constraint(a, dims):
+    return a
+
+
+def expert_ffn(buf, wi, wg, wo, constrain=_no_constraint):
+    """buf: (B, E, C, D) -> (B, E, C, D), each expert's SwiGLU FFN;
+    ``constrain(tensor, dims)`` lays out its hidden and its output (see
+    :func:`moe_scatter`)."""
     h = torch.einsum("becd,edf->becf", buf, wi)
     g = torch.einsum("becd,edf->becf", buf, wg)
-    return torch.einsum("becf,efd->becd", F.silu(g) * h, wo)
+    h = constrain(F.silu(g) * h, ("batch", "expert", None, "d_ff"))
+    out = torch.einsum("becf,efd->becd", h, wo)
+    return constrain(out, ("batch", "expert", None, "d_model"))
 
 
 def moe_scatter_ref(x, lin, n_slots: int):
@@ -277,21 +286,35 @@ def moe_gather_ref(out, lin, gates):
 
 
 def moe_scatter(x, gate_vals, expert_idx, wi, wg, wo, *, capacity: int,
-                scatter_rows=moe_scatter_ref, gather_rows=moe_gather_ref):
+                scatter_rows=moe_scatter_ref, gather_rows=moe_gather_ref,
+                constrain=None):
     """Scatter/gather dispatch, the counterpart of the reference's
     ``moe_scatter_xla`` and of its Pallas path: x (B, S, D); gate_vals /
     expert_idx (B, S, K); wi/wg (E, D, F); wo (E, F, D) -> y (B, S, D).
     Slot assignment, ``scatter_rows``, the expert FFN, ``gather_rows``
     (float32 accumulation); the CUDA route passes its two kernels for the
-    plain versions."""
+    plain versions.
+
+    ``constrain(tensor, dims)`` is the layer's sharding callback, applied
+    at the reference's points: the slot assignment and the scatter per
+    batch row, the buffer then laid out by ``("batch", "expert", None,
+    "d_model")`` for the expert FFN, and back to ``("batch", None,
+    "d_model")`` for the gather.  Without it nothing is placed."""
+    cs = constrain or _no_constraint
     B, S, D = x.shape
     E, K, C = wi.shape[0], expert_idx.shape[-1], capacity
-    lin, keep = moe_positions(expert_idx, E, C)
-    lin = lin.reshape(B, S, K)
-    buf = scatter_rows(x, lin, E * C)[:, :-1].reshape(B, E, C, D)
-    out = expert_ffn(buf, wi, wg, wo).reshape(B, E * C, D)
+    lin, keep = run_local(lambda e: moe_positions(e, E, C), [expert_idx],
+                          [("batch", None, None)],
+                          [("batch", None), ("batch", None)],
+                          allowed=("batch",))
+    lin = cs(lin, ("batch", None)).reshape(B, S, K)
+    buf = cs(scatter_rows(x, lin, E * C), ("batch", None, "d_model"))
+    buf = cs(buf[:, :-1].reshape(B, E, C, D),
+             ("batch", "expert", None, "d_model"))
+    out = expert_ffn(buf, wi, wg, wo, cs).reshape(B, E * C, D)
+    out = cs(out, ("batch", None, "d_model"))
     gates = (keep.reshape(B, S, K) * gate_vals).float()
-    return gather_rows(out, lin, gates)
+    return cs(gather_rows(out, lin, gates), ("batch", "seq", "d_model"))
 
 
 def moe_dense_ref(x, gate_vals, expert_idx, wi, wg, wo, *, capacity: int):

@@ -1,5 +1,6 @@
 """Serving command of the port: requests in, completions out, through
-:class:`repro_torch.serve.ServeEngine` on one GPU.
+:class:`repro_torch.serve.ServeEngine` on one GPU or, under ``torchrun``,
+a mesh.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b \
         --width 0 --depth 0 --vocab 0 --batch 8 --requests 16 \
@@ -46,7 +47,13 @@ loads one from JSON instead (arch-checked), ``--save-plan`` writes it.
 One GPU has no mesh, so a built plan degrades to uniform and a loaded
 one places nothing (both logged); the engine and the lockstep loop take
 the plan all the same, and a plan whose decode phase is
-pipeline-staged is refused.
+pipeline-staged is refused.  With ``WORLD_SIZE`` > 1 (``torchrun``;
+``gloo`` with ``--device cpu``, ``nccl`` on the cards) the command joins
+the process group, builds the reference's serve mesh (two on ``model``
+from four even devices, ``launch/mesh.py::serve_mesh``), resolves the
+plan for it and serves under ``use_mesh``: the engine realizes the
+decode phase's layout (params, and the cache once).  Only rank 0 prints
+and saves the plan.
 
     python -m repro_torch.launch.serve --arch llama3.2-1b \
         --strategy searched --save-plan plan.json
@@ -56,18 +63,25 @@ pipeline-staged is refused.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import sys
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.core.sharding import (current_mesh, is_dtensor, use_mesh,
+                                       whole)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import init_distributed, serve_mesh
 from repro_torch.launch.train import reduced_arch, require_kernel_shapes
 from repro_torch.data import make_dataset
 from repro_torch.models import init_params, model_module
 from repro_torch.models.arch import ShapeSpec
-from repro_torch.plans import STRATEGIES, ParallelPlan, resolve_plan
+from repro_torch.plans import (STRATEGIES, ParallelPlan, distribute,
+                               param_pspecs, resolve_plan, to_shardings)
 from repro_torch.plans.parallel_plan import as_model_plan
 from repro_torch.serve import PrefixCache, Request, ServeConfig, ServeEngine
 
@@ -210,8 +224,14 @@ def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
     (step i fed column i of ``feed`` (B, gen - 1) instead, where given).
     Returns the tokens (B, gen) on the host, every call's last-position
     logits on the device, and the prefill's and the steps' seconds.
-    ``plan`` is checked against ``arch`` and places nothing (one device)."""
-    as_model_plan(plan, arch, "decode")        # checks the arch
+    ``plan`` is checked against ``arch``; under an active mesh the loop
+    realizes it (params by the decode phase's specs, each call under its
+    phase's configs, the logits gathered), and places nothing without."""
+    pre, dec = (as_model_plan(plan, arch, p) for p in ("prefill", "decode"))
+    mesh = current_mesh()
+    if mesh is not None and not is_dtensor(params["embed"]["table"]):
+        params = distribute(params, to_shardings(
+            param_pspecs(params, arch, dec), mesh, like=params))
     mod = model_module(arch)
     device = batch["tokens"].device
     dtype = params["embed"]["table"].dtype
@@ -229,7 +249,8 @@ def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
         cache = mod.init_cache(arch, B, pos + gen, dtype, device=device, **kw)
         _sync(device)
         t0 = time.perf_counter()
-        logits, cache = mod.prefill(params, batch, cache, arch)
+        logits, cache = mod.prefill(params, batch, cache, arch, pre)
+        logits = whole(logits)
         tok = next_token(logits)
         _sync(device)
         t_prefill = time.perf_counter() - t0
@@ -239,7 +260,8 @@ def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
             if feed is not None:
                 tok = feed[:, i:i + 1].to(device)
             logits, cache = mod.decode_step(params, tok, cache, pos + i,
-                                            arch)
+                                            arch, dec)
+            logits = whole(logits)
             tok = next_token(logits)
             out.append(logits[:, -1])
             toks.append(tok)
@@ -296,20 +318,36 @@ def main(argv=None) -> dict:
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
     require_kernel_shapes(arch, device)
+    rank, world = init_distributed(device)
+    mesh = mesh_spec = None
+    if world > 1:
+        mesh, mesh_spec = serve_mesh(world, device.type)
+    out = io.StringIO()
+    # one device: no mesh (a built plan degrades to uniform, as logged)
+    with contextlib.redirect_stdout(out if rank else sys.stdout), \
+            use_mesh(mesh):
+        if mesh is not None:
+            sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            print(f"mesh: data={sizes['data']} model={sizes['model']} "
+                  f"({world} ranks, "
+                  f"{'nccl' if device.type == 'cuda' else 'gloo'})")
+        return _serve(args, arch, device, dtype, mesh_spec, rank)
+
+
+def _serve(args, arch, device, dtype, mesh_spec, rank: int) -> dict:
     max_len = args.prompt_len + args.gen
     # the plan prices decode with the chunk budget the engine will run
     chunk = args.prefill_chunk_tokens
     if chunk < 0:
         chunk = 2 * args.kv_block_size if args.kv_block_size else 256
-    # one GPU: no mesh (a built plan degrades to uniform, as logged)
     plan = resolve_serve_plan(
-        arch, None, plan_path=args.plan, strategy=args.strategy,
+        arch, mesh_spec, plan_path=args.plan, strategy=args.strategy,
         prompt_len=args.prompt_len, max_batch=args.batch, max_len=max_len,
         kv_block_size=args.kv_block_size,
         prefill_chunk_tokens=min(chunk, max_len),
         shared_prefix_tokens=args.shared_prefix_tokens,
         kv_quant=None if args.kv_quant == "none" else args.kv_quant,
-        save_plan=args.save_plan)
+        save_plan=args.save_plan if rank == 0 else "")
     if arch.enc_layers:
         return serve_encdec(args, arch, device, dtype, plan)
     n_requests = args.requests or 2 * args.batch

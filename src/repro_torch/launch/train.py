@@ -1,5 +1,5 @@
 """Training command of the port: the counterpart of
-``repro.launch.train``, on one GPU.
+``repro.launch.train``, on one GPU or, under ``torchrun``, a mesh.
 
 Builds the train step, streams the synthetic pipeline, checkpoints
 periodically and resumes after failures (``--resume`` restores the newest
@@ -30,7 +30,16 @@ pipeline stages.  One GPU has no mesh (``None``), on which every built
 plan degrades to uniform, and a loaded plan searched for a mesh says
 that it places nothing here (both logged, as the reference logs them);
 the train phase of the plan goes to ``make_train_step``, which refuses a
-pipeline-staged one, naming the realization slice.  The flags that need
+pipeline-staged one, naming the 1F1B slice.
+
+With ``WORLD_SIZE`` > 1 (``torchrun --nproc-per-node N``; ``gloo`` with
+``--device cpu``, ``nccl`` on the cards) the command joins the process
+group, builds the reference's train mesh (every rank on ``data``,
+``launch/mesh.py::train_mesh``), searches or loads the plan for it, and
+realizes the train phase: params by ``param_pspecs``, the AdamW moments
+ZeRO-1 (``zero1_state_pspecs``), each batch by ``batch_pspecs``.  Only
+rank 0 prints, saves the plan and writes checkpoints (of the gathered
+tensors; a restore re-places them).  The flags that need
 the profiler or the kernel dispatcher (``--device-profile``,
 ``--kernel-backend``, ``--autotune-cache-dir``) raise, naming the slice
 that brings them.
@@ -49,15 +58,17 @@ import torch
 
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.sharding import use_mesh
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
+from repro_torch.launch.mesh import init_distributed, train_mesh
 from repro_torch.models import init_params
 from repro_torch.models.arch import ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw_init
 from repro_torch.plans import resolve_plan
-from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train import TrainConfig, make_train_step, realize
 
 
 def reduced_arch(arch, width, depth, vocab, experts=0):
@@ -197,6 +208,8 @@ def main(argv=None) -> list[dict]:
     args = parser().parse_args(argv)
     _refuse_later_flags(args)
     device = resolve_device(args.device)
+    rank, world = init_distributed(device)
+    log = print if rank == 0 else (lambda *a, **k: None)
 
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
@@ -204,13 +217,19 @@ def main(argv=None) -> list[dict]:
     shape = ShapeSpec("custom", args.seq, args.batch, "train")
     name = {"search": "searched", "none": "uniform"}.get(
         args.strategy, args.strategy)
-    # one GPU: no mesh, so a built plan degrades to uniform and a loaded
-    # one places nothing (resolve_plan logs both)
+    # one device: no mesh, so a built plan degrades to uniform and a
+    # loaded one places nothing (resolve_plan logs both)
+    mesh = mesh_spec = None
+    if world > 1:
+        mesh, mesh_spec = train_mesh(world, device.type)
+        log(f"mesh: data={world} model=1 ({world} ranks, "
+            f"{'nccl' if device.type == 'cuda' else 'gloo'})")
     pplan = resolve_plan(
-        arch, None, phases=("train",), plan_path=args.plan, strategy=name,
-        save_plan=args.save_plan, train_seq=args.seq,
-        train_batch=args.batch, train_stages=args.pipeline_stages,
-        train_microbatches=args.microbatches)
+        arch, mesh_spec, phases=("train",), plan_path=args.plan,
+        strategy=name, save_plan=args.save_plan if rank == 0 else "",
+        train_seq=args.seq, train_batch=args.batch,
+        train_stages=args.pipeline_stages,
+        train_microbatches=args.microbatches, log=log)
     staged = pplan.stage_for("train").num_stages > 1
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20,
@@ -226,7 +245,11 @@ def main(argv=None) -> list[dict]:
         arch, torch.float32,
         generator=torch.Generator(device=device).manual_seed(0),
         device=device)
-    opt_state = adamw_init(params)
+    if mesh is None:
+        opt_state, place_batch = adamw_init(params), (lambda b: b)
+    else:
+        params, opt_state, place_batch = realize(
+            params, arch, pplan.plan_for("train"), mesh)
     start_step = 0
     if args.resume:
         like = {"params": params, "opt": opt_state}
@@ -234,19 +257,20 @@ def main(argv=None) -> list[dict]:
         if step is not None:
             params, opt_state = state["params"], state["opt"]
             start_step = step
-            print(f"resumed from step {step}")
+            log(f"resumed from step {step}")
 
     history = []
     t0 = time.time()
     for step in range(start_step, args.steps):
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in ds.batch_at(step).items()}
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        batch = place_batch({k: torch.as_tensor(v, device=device)
+                             for k, v in ds.batch_at(step).items()})
+        with use_mesh(mesh):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             dt = time.time() - t0
             tok_s = shape.tokens * (step - start_step + 1) / max(dt, 1e-9)
-            print(f"step {step:5d} loss={m['loss']:.4f} "
+            log(f"step {step:5d} loss={m['loss']:.4f} "
                   f"nll={m['nll']:.4f} acc={m['accuracy']:.3f} "
                   f"gnorm={m['grad_norm']:.2f} tok/s={tok_s:.0f}")
             history.append({"step": step, **m})
@@ -254,11 +278,11 @@ def main(argv=None) -> list[dict]:
             ckpt.save(step + 1, {"params": params, "opt": opt_state})
     if args.ckpt_every:
         ckpt.save(args.steps, {"params": params, "opt": opt_state})
-    if args.metrics_out:
+    if args.metrics_out and rank == 0:
         Path(args.metrics_out).write_text(json.dumps(history, indent=1))
     if history:
         first, last = history[0]["nll"], history[-1]["nll"]
-        print(f"nll {first:.4f} -> {last:.4f} "
+        log(f"nll {first:.4f} -> {last:.4f} "
               f"({'LEARNED' if last < first - 0.2 else 'check'})")
     return history
 

@@ -9,7 +9,8 @@ so its self-attention is the flash kernel's full (non-causal) form; the
 decoder's units carry ``ln_x`` and ``xattn`` and attend over the
 encoder's output (the memory) through the chunked core.
 
-Entry points (``plan`` is accepted for signature parity, as in ``lm``):
+Entry points (``plan``, a ``ModelPlan`` or None for the uniform one,
+constrains the activations as in ``lm``):
   init_encdec(arch, dtype, generator=, device=)   -> params
   encode(params, frames, arch[, plan])            -> memory (B, S_enc, D)
   forward(params, batch, arch[, plan])            -> (logits, aux)
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sharding import constrain
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -58,42 +60,50 @@ def init_encdec(arch: ArchConfig, dtype=torch.float32, *,
     }
 
 
+_BSD = ("batch", "seq", "d_model")
+
+
 def encode(params, frames, arch: ArchConfig, plan=None, *, remat=False):
     """frames: (B, S_enc, D) stubbed embeddings -> (B, S_enc, D) memory."""
+    plan = lm.plan_or_uniform(plan, arch)
     w = params["enc_in"]["w"]
-    h = frames.to(w.dtype) @ w
+    h = constrain(frames.to(w.dtype) @ w, plan.enc_embed, _BSD)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _, _ = lm.run_stack(h, params["enc_stack"], _enc_view(arch),
-                           positions=positions, causal=False, remat=remat)
+                           plan.enc_segments, positions=positions,
+                           causal=False, remat=remat)
     return L.apply_norm(params["enc_norm"], h)
 
 
-def _decode(params, batch, arch, *, remat):
+def _decode(params, batch, arch, plan, *, remat):
     """Encode, then the decoder stack over the memory -> ((B, S_dec, D),
     aux); ``remat`` checkpoints every unit of both stacks."""
-    memory = encode(params, batch["frames"], arch, remat=remat)
+    plan = lm.plan_or_uniform(plan, arch)
+    memory = encode(params, batch["frames"], arch, plan, remat=remat)
     mpos = torch.arange(memory.shape[1], device=memory.device)
     tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens)
+    h = L.embed(params["embed"], tokens, plan.embed)
     h, aux, _ = lm.run_stack(
-        h, params["stack"], arch,
+        h, params["stack"], arch, plan.segments,
         positions=torch.arange(tokens.shape[1], device=h.device),
         causal=True, memory=(memory, mpos), remat=remat)
-    return L.apply_norm(params["final_norm"], h), aux
+    h = L.apply_norm(params["final_norm"], h)
+    return constrain(h, plan.final_norm, _BSD), aux
 
 
 def forward(params, batch: dict, arch: ArchConfig, plan=None, *,
             q_chunk=512, remat=True):
     """-> (logits (B, S_dec, V), aux)."""
-    h, aux = _decode(params, batch, arch, remat=remat)
-    return L.lm_head(params["lm_head"], h, params["embed"], arch), aux
+    h, aux = _decode(params, batch, arch, plan, remat=remat)
+    return L.lm_head(params["lm_head"], h, params["embed"], arch,
+                     lm.plan_or_uniform(plan, arch).lm_head), aux
 
 
 def loss_fn(params, batch: dict, arch: ArchConfig, plan=None, *,
             q_chunk=512, remat=True, loss_chunk=512):
     """Next-token loss of the decoder tokens; returns (loss, {"loss",
     "nll", "accuracy"})."""
-    h, _ = _decode(params, batch, arch, remat=remat)
+    h, _ = _decode(params, batch, arch, plan, remat=remat)
     tokens = batch["tokens"]
     loss, metrics = lm.chunked_lm_loss(h[:, :-1, :], tokens[:, 1:], params,
                                        arch, plan, chunk=loss_chunk)
@@ -120,28 +130,31 @@ def prefill(params, batch: dict, cache: dict, arch: ArchConfig, plan=None,
     """Encode, then prefill the decoder's KV rows from position 0; returns
     (last-position logits (B, 1, V), {"dec", "memory"}) with the memory
     that decode steps attend to."""
-    memory = encode(params, batch["frames"], arch)
+    plan = lm.plan_or_uniform(plan, arch)
+    memory = encode(params, batch["frames"], arch, plan)
     mpos = torch.arange(memory.shape[1], device=memory.device)
     tokens = batch["tokens"]
-    h = L.embed(params["embed"], tokens)
+    h = L.embed(params["embed"], tokens, plan.embed)
     h, _, dec = lm.run_stack(
-        h, params["stack"], arch,
+        h, params["stack"], arch, plan.segments,
         positions=torch.arange(tokens.shape[1], device=h.device),
         causal=True, cache=cache["dec"], cache_pos=0, memory=(memory, mpos))
-    return lm._head(params, h[:, -1:, :], arch), {"dec": dec,
-                                                   "memory": memory}
+    return lm._head(params, h[:, -1:, :], arch, plan), {"dec": dec,
+                                                         "memory": memory}
 
 
 def decode_step(params, token, cache: dict, pos, arch: ArchConfig,
                 plan=None):
     """One decode step over the dense rows: token (B, 1); pos a scalar or
     (B,) (``lm.decode_positions``)."""
+    plan = lm.plan_or_uniform(plan, arch)
     memory = cache["memory"]
     mpos = torch.arange(memory.shape[1], device=memory.device)
-    h = L.embed(params["embed"], token)
+    h = L.embed(params["embed"], token, plan.embed)
     positions, cache_pos = lm.decode_positions(pos, token.shape[0],
                                                token.device)
-    h, _, dec = lm.run_stack(h, params["stack"], arch, positions=positions,
-                             causal=True, cache=cache["dec"],
-                             cache_pos=cache_pos, memory=(memory, mpos))
-    return lm._head(params, h, arch), {"dec": dec, "memory": memory}
+    h, _, dec = lm.run_stack(h, params["stack"], arch, plan.segments,
+                             positions=positions, causal=True,
+                             cache=cache["dec"], cache_pos=cache_pos,
+                             memory=(memory, mpos))
+    return lm._head(params, h, arch, plan), {"dec": dec, "memory": memory}

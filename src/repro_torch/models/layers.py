@@ -3,8 +3,10 @@ counterparts of ``repro.models.layers``.
 
 Parameters are plain dicts of tensors in the reference's layouts
 (``wq (d, H, hd)``, ``wo (H, hd, d)``, ...), so the bridge moves them
-across unchanged.  The reference's ``constrain`` (sharding under a
-searched plan) has no counterpart yet: the port runs on one device.
+across unchanged.  Each function takes its sublayer's ``LayerConfig``
+(replicated by default) and constrains its activations at the
+reference's points (:func:`repro_torch.core.sharding.constrain`, the
+identity without an active mesh).
 
 Cache updates happen in place: where the reference returns a new cache
 and relies on jit donation to reuse the buffer, these functions write
@@ -18,9 +20,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.config import LayerConfig
+from repro_torch.core.sharding import (constrain, is_dtensor, run_local,
+                                       unflatten)
 from repro_torch.kernels import ops
-from repro_torch.kernels.mha_chunked import mha_chunked
 from repro_torch.kernels.quant import quantize_kv
+
+R = LayerConfig.REPLICATED
+_BSHD = ("batch", "seq", "heads", None)
+_BSD = ("batch", "seq", "d_model")
 
 
 # --------------------------------------------------------------------------- #
@@ -109,23 +117,25 @@ def _proj(x, w):
 
 def _scatter_rows(pool, phys, rows):
     """In place: ``pool`` (NB, bs, ...) viewed as token rows gets
-    ``rows`` at flat token slots ``phys``."""
+    ``rows`` at flat token slots ``phys``.  A realized pool (a DTensor,
+    blocks whole, heads maybe split) is written on its local shard, with
+    ``rows`` gathered over batch and split as the pool's heads are."""
+    if is_dtensor(pool):
+        # payload (NB, bs, KH, hd) or int8 scales (NB, bs, KH)
+        heads = ("heads", None) if pool.ndim == 4 else ("heads",)
+        run_local(lambda p_, r_: _scatter_rows(p_, phys, r_), [pool, rows],
+                  [(None, None) + heads,
+                   (None,) * (rows.ndim - len(heads)) + heads], None,
+                  allowed=("heads",), inplace=(0,))
+        return
     NB, bs = pool.shape[:2]
     pool.view(NB * bs, *pool.shape[2:])[phys] = rows
 
 
-def _chunked(q, k, v, G: int, **kw):
-    """The chunked core over K/V repeated ``G`` times over heads."""
-    if G > 1:
-        k = k.repeat_interleave(G, dim=2)
-        v = v.repeat_interleave(G, dim=2)
-    return mha_chunked(q, k, v, **kw)
-
-
-def attention(p: dict, x, arch, *, positions, causal: bool = True,
-              kv_cache: dict | None = None, cache_pos=None,
-              block_tables=None, q_lens=None, kv_override=None,
-              use_rope: bool = True):
+def attention(p: dict, x, arch, cfg: LayerConfig = R, *, positions,
+              causal: bool = True, kv_cache: dict | None = None,
+              cache_pos=None, block_tables=None, q_lens=None,
+              kv_override=None, use_rope: bool = True):
     """GQA attention block (qkv projection + core).
 
     Four forms through the kernels, as in the reference:
@@ -154,12 +164,13 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
     only with ``use_rope``); and a dense cache continued mid-sequence
     (scalar ``cache_pos`` other than the literal 0, S > 1), whose S rows
     are written at ``cache_pos`` and attend causally over the whole row.
+    ``cfg`` (the plan's ``attn`` config) lays q, k, v and the output out
+    by ``("batch", "seq", "heads", None)``.  On a realized plan a dense
+    cache (DTensor rows) is written and attended on its local shards
+    (:func:`_dense_cache_local`); a paged pool is written on its shard by
+    :func:`_scatter_rows` and attended through the ops' shard-local path.
     Returns (out (B, S, H, hd), cache).
     """
-    B, S, _ = x.shape
-    KH, H, hd = arch.n_kv_heads, arch.n_heads, arch.hd
-    G = H // KH
-
     q = _proj(x, p["wq"])
     if "bq" in p:
         q = q + p["bq"]
@@ -178,10 +189,62 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
         q = rms_norm(q, p["q_norm"])
     if use_rope:
         q = rope(q, positions, arch.rope_theta)
+    q = constrain(q, cfg, _BSHD)
     if kv_override is not None:
-        return _chunked(q, k, v, G, causal=causal, q_positions=positions,
-                        kv_positions=kv_positions), kv_cache
+        o = ops.chunked_attention(q, k, v, causal=causal,
+                                  q_positions=positions,
+                                  kv_positions=kv_positions)
+        return constrain(o, cfg, _BSHD), kv_cache
+    k, v = constrain(k, cfg, _BSHD), constrain(v, cfg, _BSHD)
+    kw = dict(positions=positions, causal=causal, kv_cache=kv_cache,
+              cache_pos=cache_pos, block_tables=block_tables, q_lens=q_lens)
+    if (kv_cache is not None and block_tables is None
+            and (is_dtensor(kv_cache["k"]) or is_dtensor(q))):
+        o = _dense_cache_local(q, k, v, **kw)
+    else:
+        o = _attend(q, k, v, **kw)
+    return constrain(o, cfg, _BSHD), kv_cache
 
+
+def _dense_cache_local(q, k, v, *, kv_cache, positions, cache_pos, q_lens,
+                       **kw):
+    """:func:`_attend` over a dense cache on a realized plan: the layout
+    follows the cache's K leaf (its batch and heads placements; a plain
+    cache is whole on every rank), so every write lands in the cache's
+    own local shard; q, k, v and the per-row metadata are brought to that
+    layout first."""
+    names = sorted(kv_cache)
+    cache_r = act_r = ("batch", None, "heads", None)
+
+    def row_r(t):
+        """Per-row metadata splits with the batch; positions shared by
+        every row, scalars and ints pass whole."""
+        if not torch.is_tensor(t) or t.ndim == 0:
+            return None
+        return ("batch",) + (None,) * (t.ndim - 1) if (
+            t.ndim == 2 or t is not positions) else (None,)
+
+    def local(ql, kl, vl, pos, cp, ql_lens, *leaves):
+        cache = dict(zip(names, leaves))
+        return _attend(ql, kl, vl, kv_cache=cache, positions=pos,
+                       cache_pos=cp, q_lens=ql_lens, **kw)
+    args = [kv_cache[n] for n in names]
+    return run_local(
+        local, [q, k, v, positions, cache_pos, q_lens] + args,
+        [act_r, act_r, act_r, row_r(positions), row_r(cache_pos),
+         row_r(q_lens)] + [cache_r] * len(args),
+        act_r, lead=6 + names.index("k"), allowed=("batch", "heads"),
+        inplace=range(6, 6 + len(args)))
+
+
+def _attend(q, k, v, *, positions, causal, kv_cache, cache_pos,
+            block_tables, q_lens):
+    """The attention core after the projections: q (B, S, H, hd), k/v
+    (B, S, KH, hd) -> (B, S, H, hd), writing ``kv_cache`` in place (see
+    :func:`attention`)."""
+    B, S, H, hd = q.shape
+    KH = k.shape[2]
+    G = H // KH
     per_slot = torch.is_tensor(cache_pos) and cache_pos.ndim == 1
 
     if kv_cache is not None and q_lens is not None and S > 1:
@@ -191,7 +254,7 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
                 f"got {getattr(cache_pos, 'shape', cache_pos)}")
         q_lens = q_lens.to(torch.int32)
         ck, cv = kv_cache["k"], kv_cache["v"]
-        t_ar = torch.arange(S, device=x.device)
+        t_ar = torch.arange(S, device=q.device)
         valid = t_ar[None, :] < q_lens[:, None]                   # (B, S)
         idx = cache_pos[:, None] + t_ar[None, :]                  # (B, S)
         kv_len = cache_pos[:, None] + torch.minimum(t_ar + 1, q_lens[:, None])
@@ -216,17 +279,17 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
             _scatter_rows(ck, phys, kd)
             _scatter_rows(cv, phys, vd)
         else:
-            rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
+            rows = torch.arange(B, device=q.device)[:, None].expand(B, S)
             ck[rows[valid], idx[valid].long()] = kd[valid]
             cv[rows[valid], idx[valid].long()] = vd[valid]
-        qg = q.transpose(1, 2).reshape(B, KH, G, S, hd)
+        qg = unflatten(q.transpose(1, 2), 1, (KH, G))
         if block_tables is not None:
             o = ops.paged_decode_attention(qg, ck, cv, block_tables, kv_len,
                                            k_scale=cks, v_scale=cvs)
         else:
             o = ops.decode_attention(qg, ck.transpose(1, 2),
                                      cv.transpose(1, 2), kv_len)
-        return o.reshape(B, H, S, hd).transpose(1, 2), kv_cache
+        return o.reshape(B, H, S, hd).transpose(1, 2)
 
     if kv_cache is not None and block_tables is not None:
         if S != 1:
@@ -239,7 +302,7 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
         ck, cv = kv_cache["k"], kv_cache["v"]
         bs = ck.shape[1]
         cp = cache_pos.long()
-        phys = (block_tables.long()[torch.arange(B, device=x.device), cp // bs]
+        phys = (block_tables.long()[torch.arange(B, device=q.device), cp // bs]
                 * bs + cp % bs)                                   # (B,)
         if q_lens is not None:
             # a row that advances no token parks its write in the trash
@@ -257,11 +320,11 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
             kd, vd = k[:, 0].to(ck.dtype), v[:, 0].to(cv.dtype)
         _scatter_rows(ck, phys, kd)
         _scatter_rows(cv, phys, vd)
-        qg = q.reshape(B, KH, G, hd)
+        qg = unflatten(q[:, 0], 1, (KH, G)).contiguous()
         o = ops.paged_decode_attention(qg, ck, cv, block_tables,
                                        positions[..., -1] + 1,
                                        k_scale=cks, v_scale=cvs)
-        return o.reshape(B, 1, H, hd), kv_cache
+        return o.reshape(B, 1, H, hd)
 
     if kv_cache is not None and S == 1:
         # dense decode; the reference writes every row here, q_lens or not
@@ -269,16 +332,17 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
         # position its next real write overwrites)
         ck, cv = kv_cache["k"], kv_cache["v"]
         if per_slot:
-            rows = torch.arange(B, device=x.device)
+            rows = torch.arange(B, device=q.device)
             ck[rows, cache_pos.long()] = k[:, 0].to(ck.dtype)
             cv[rows, cache_pos.long()] = v[:, 0].to(cv.dtype)
         else:
             cp = cache_pos.long() if torch.is_tensor(cache_pos) else cache_pos
             ck[:, cp] = k[:, 0].to(ck.dtype)
             cv[:, cp] = v[:, 0].to(cv.dtype)
-        o = ops.decode_attention(q.reshape(B, KH, G, hd), ck.transpose(1, 2),
+        o = ops.decode_attention(unflatten(q[:, 0], 1, (KH, G)).contiguous(),
+                                 ck.transpose(1, 2),
                                  cv.transpose(1, 2), positions[..., -1] + 1)
-        return o.reshape(B, 1, H, hd), kv_cache
+        return o.reshape(B, 1, H, hd)
 
     if kv_cache is not None:
         if per_slot:
@@ -292,10 +356,9 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
             cp = int(cache_pos)
             ck[:, cp:cp + S] = k.to(ck.dtype)
             cv[:, cp:cp + S] = v.to(cv.dtype)
-            return _chunked(q, ck, cv, G, causal=True, q_positions=positions,
-                            kv_positions=torch.arange(ck.shape[1],
-                                                      device=x.device)), \
-                kv_cache
+            return ops.chunked_attention(
+                q, ck, cv, causal=True, q_positions=positions,
+                kv_positions=torch.arange(ck.shape[1], device=q.device))
         ck[:, :S] = k.to(ck.dtype)
         cv[:, :S] = v.to(cv.dtype)
         k, v = ck, cv
@@ -304,13 +367,15 @@ def attention(p: dict, x, arch, *, positions, causal: bool = True,
                             k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(),
                             causal=causal)
-    return o.transpose(1, 2), kv_cache
+    return o.transpose(1, 2)
 
 
-def attention_out(p: dict, attn):
-    """o-proj: (B, S, H, hd) -> (B, S, d_model)."""
+def attention_out(p: dict, attn, cfg: LayerConfig = R):
+    """o-proj: (B, S, H, hd) -> (B, S, d_model); ``cfg`` lays out
+    (batch, seq, d_model)."""
     H, hd, d = p["wo"].shape
-    return attn.reshape(*attn.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+    y = attn.reshape(*attn.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+    return constrain(y, cfg, _BSD)
 
 
 # --------------------------------------------------------------------------- #
@@ -326,10 +391,11 @@ def init_mlp(arch, dtype, *, generator, device, lead=()):
     }
 
 
-def mlp(p: dict, x):
+def mlp(p: dict, x, cfg_in: LayerConfig = R, cfg_out: LayerConfig = R):
     h = x @ p["wi"]
     g = x @ p["wg"]
-    return (F.silu(g) * h) @ p["wo"]
+    h = constrain(F.silu(g) * h, cfg_in, ("batch", "seq", "d_ff"))
+    return constrain(h @ p["wo"], cfg_out, _BSD)
 
 
 # --------------------------------------------------------------------------- #
@@ -340,8 +406,15 @@ def init_embed(arch, dtype, *, generator, device):
                                 generator=generator, device=device)}
 
 
-def embed(p: dict, tokens):
-    return p["table"][tokens]
+def embed(p: dict, tokens, cfg: LayerConfig = R):
+    """The table's rows of ``tokens``; on a realized plan looked up on each
+    shard's table columns with every token (DTensor's backward of an index
+    into a split table is unreliable), then laid out by ``cfg``."""
+    rows = run_local(lambda t, i: t[i], [p["table"], tokens],
+                     [(None, "d_model"), (None,) * tokens.ndim],
+                     (None,) * tokens.ndim + ("d_model",),
+                     allowed=("d_model",))
+    return constrain(rows, cfg, _BSD)
 
 
 def init_lm_head(arch, dtype, *, generator, device):
@@ -352,6 +425,6 @@ def init_lm_head(arch, dtype, *, generator, device):
                             device=device)}
 
 
-def lm_head(p: dict, x, embed_p: dict, arch):
+def lm_head(p: dict, x, embed_p: dict, arch, cfg: LayerConfig = R):
     w = embed_p["table"].T if arch.tie_embeddings else p["w"]
-    return x @ w
+    return constrain(x @ w, cfg, ("batch", "seq", "vocab"))

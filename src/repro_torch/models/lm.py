@@ -21,9 +21,12 @@ Entry points:
   step(params, tokens, cache, pos, arch[, q_lens, block_tables])
                                                  -> (logits, cache)
 
-``plan`` (a searched ``ModelPlan`` in the reference) only places
-tensors across devices; on one device it changes no arithmetic, and the
-port accepts it for signature parity.  A frontend arch (a VLM) takes
+``plan`` (a ``ModelPlan``; ``None`` is the uniform plan) places tensors
+across devices: each unit runs under its segment's sublayer configs,
+which constrain the activations at the reference's points
+(:func:`repro_torch.core.sharding.constrain`).  Without an active mesh a
+constraint is the identity, so a plan changes no arithmetic on one
+device.  A frontend arch (a VLM) takes
 ``batch["frontend"]`` (B, F, D), stubbed patch embeddings that
 ``hidden_states`` and ``prefill`` put before the text, as the reference
 does; its loss scores the text segment alone.  An encoder-decoder runs
@@ -40,17 +43,25 @@ batch dimension (``"dots"``) or of every matrix product
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from repro_torch.core.config import LayerConfig
+from repro_torch.core.sharding import constrain, run_local
 from repro_torch.device import resolve_device
 
 from . import layers as L
 from . import moe as M
 from . import recurrent as Rc
 from .arch import ArchConfig
+from .plan import ModelPlan, uniform_plan
+
+R = LayerConfig.REPLICATED
+_BSD = ("batch", "seq", "d_model")
 
 
 def check_arch(arch: ArchConfig) -> None:
@@ -140,60 +151,90 @@ def _store(leaves: dict, new: dict) -> None:
         leaves[name].copy_(t)
 
 
-def _cross_attend(h, lp, arch, positions, memory):
+def plan_or_uniform(plan, arch: ArchConfig) -> ModelPlan:
+    """``plan``, or the uniform plan (batch over ``data``) for None."""
+    return plan if plan is not None else _uniform(arch)
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform(arch: ArchConfig) -> ModelPlan:
+    return uniform_plan(arch)
+
+
+def unit_plan_at(segments, u: int):
+    """The UnitPlan of the segment that holds unit ``u`` (None without
+    segments)."""
+    for seg in segments or ():
+        if seg.start <= u < seg.end:
+            return seg.plan
+    return None
+
+
+def _cross_attend(h, lp, arch, positions, memory, cfg):
     """Cross-attention after a layer's mixer: ``ln_x``, K/V projected from
     the memory ``(mem_h, mpos)`` with no bias, norm or rope, the
-    non-causal chunked core, the output projection and the residual."""
+    non-causal chunked core, the output projection and the residual;
+    ``cfg(key)`` gives the sublayer configs."""
     if memory is None:
         return h
     mem_h, mpos = memory
     xp = lp["xattn"]
     mk, mv = L._proj(mem_h, xp["wk"]), L._proj(mem_h, xp["wv"])
-    a, _ = L.attention(xp, L.apply_norm(lp["ln_x"], h), arch,
-                       positions=positions, causal=False,
-                       kv_override=(mk, mv, mpos), use_rope=False)
-    return h + L.attention_out(xp, a)
+    hx = constrain(L.apply_norm(lp["ln_x"], h), cfg("ln_x"), _BSD)
+    a, _ = L.attention(xp, hx, arch, cfg("xattn"), positions=positions,
+                       causal=False, kv_override=(mk, mv, mpos),
+                       use_rope=False)
+    h = h + L.attention_out(xp, a, cfg("xattn_out"))
+    return constrain(h, cfg("add_x"), _BSD)
 
 
-def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
-                 causal=True, cache=None, cache_pos=None, block_tables=None,
-                 q_lens=None, memory=None, time_chunk=64):
+def unit_forward(h, unit_params, arch: ArchConfig, unit_plan=None, *,
+                 positions, causal=True, cache=None, cache_pos=None,
+                 block_tables=None, q_lens=None, memory=None,
+                 time_chunk=64):
     """Returns (h, aux_loss, new_cache) for one pattern unit; ``aux_loss``
     sums the unit's MoE load-balancing losses (0 without MoE layers).
     ``memory=(mem_h (B, S_enc, D), mpos (S_enc,))`` adds each attention
     or Mamba layer's cross-attention after its mixer (an encoder-decoder's
-    decoder; no configuration puts it after an RWKV6 time mix)."""
+    decoder; no configuration puts it after an RWKV6 time mix).
+    ``unit_plan`` (one dict of sublayer configs a layer) lays the
+    activations out at the reference's points; None places nothing."""
     new_cache: dict = {}
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, spec in enumerate(arch.pattern):
+        sub = unit_plan[j] if unit_plan else {}
+        c = lambda key, sub=sub: sub.get(key, R)
         lp = unit_params[f"l{j}"]
         lc = cache.get(f"l{j}") if cache is not None else None
-        hn = L.apply_norm(lp["ln1"], h)
+        hn = constrain(L.apply_norm(lp["ln1"], h), c("ln1"), _BSD)
         if spec.mixer == "rwkv":
             if cache is None:
                 # the reference's inner remat: during the unit's backward
                 # recompute only one time mix's internals are live at a time
                 h = h + checkpoint(
-                    lambda p_, h_: Rc.rwkv_tmix(p_, h_, arch,
-                                                chunk=time_chunk)[0],
+                    lambda p_, h_, cfg=c("tmix"): Rc.rwkv_tmix(
+                        p_, h_, arch, chunk=time_chunk, cfg=cfg)[0],
                     lp["tmix"], hn, use_reentrant=False,
                     preserve_rng_state=False)
-                hn = L.apply_norm(lp["ln2"], h)
-                h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch)[0]
+                h = constrain(h, c("add1"), _BSD)
+                hn = constrain(L.apply_norm(lp["ln2"], h), c("ln2"), _BSD)
+                h = h + Rc.rwkv_cmix(lp["cmix"], hn, arch, cfg=c("cmix"))[0]
+                h = constrain(h, c("add2"), _BSD)
                 new_cache[f"l{j}"] = {}
                 continue
             # the mixers return new states: write them into the cache
             # leaves, which may be a mixed step's row views
             y, st = Rc.rwkv_tmix(lp["tmix"], hn, arch,
                                  state=lc["tmix_state"], chunk=time_chunk,
-                                 q_lens=q_lens)
+                                 q_lens=q_lens, cfg=c("tmix"))
             _store(lc["tmix_state"], st)
-            h = h + y
-            hn = L.apply_norm(lp["ln2"], h)
+            h = constrain(h + y, c("add1"), _BSD)
+            hn = constrain(L.apply_norm(lp["ln2"], h), c("ln2"), _BSD)
             y, st = Rc.rwkv_cmix(lp["cmix"], hn, arch,
-                                 state=lc["cmix_state"], q_lens=q_lens)
+                                 state=lc["cmix_state"], q_lens=q_lens,
+                                 cfg=c("cmix"))
             _store(lc["cmix_state"], st)
-            h = h + y
+            h = constrain(h + y, c("add2"), _BSD)
             new_cache[f"l{j}"] = lc
             continue
         nc: dict = {}
@@ -202,38 +243,41 @@ def unit_forward(h, unit_params, arch: ArchConfig, *, positions,
                 # the reference's inner remat: during the unit's backward
                 # recompute only one mixer's scan internals are live
                 y = checkpoint(
-                    lambda p_, h_: Rc.mamba_mix(p_, h_, arch,
-                                                chunk=time_chunk)[0],
+                    lambda p_, h_, cfg=c("ssm"): Rc.mamba_mix(
+                        p_, h_, arch, chunk=time_chunk, cfg=cfg)[0],
                     lp["ssm"], hn, use_reentrant=False,
                     preserve_rng_state=False)
             else:
                 y, nc["ssm_state"] = Rc.mamba_mix(
                     lp["ssm"], hn, arch, state=lc.get("ssm_state"),
-                    chunk=time_chunk, q_lens=q_lens)
+                    chunk=time_chunk, q_lens=q_lens, cfg=c("ssm"))
             h = h + y
         else:
             a, kvc = L.attention(
-                lp["attn"], hn, arch, positions=positions, causal=causal,
-                kv_cache=(lc or {}).get("kv"), cache_pos=cache_pos,
-                block_tables=block_tables, q_lens=q_lens)
-            h = h + L.attention_out(lp["attn"], a)
+                lp["attn"], hn, arch, c("attn"), positions=positions,
+                causal=causal, kv_cache=(lc or {}).get("kv"),
+                cache_pos=cache_pos, block_tables=block_tables,
+                q_lens=q_lens)
+            h = h + L.attention_out(lp["attn"], a, c("attn_out"))
             if kvc is not None:
                 nc["kv"] = kvc
-        h = _cross_attend(h, lp, arch, positions, memory)
-        hn = L.apply_norm(lp["ln2"], h)
+        h = constrain(h, c("add1"), _BSD)
+        h = _cross_attend(h, lp, arch, positions, memory, c)
+        hn = constrain(L.apply_norm(lp["ln2"], h), c("ln2"), _BSD)
         if spec.ffn == "moe":
             if cache is None:
                 # the reference's inner remat: during the unit's backward
                 # recompute one MoE layer's dispatch buffers live at a time
                 y, a_loss = checkpoint(
-                    lambda p_, h_: M.moe_ffn(p_, h_, arch), lp["moe"], hn,
-                    use_reentrant=False, preserve_rng_state=False)
+                    lambda p_, h_, cfg=c("moe"): M.moe_ffn(p_, h_, arch, cfg),
+                    lp["moe"], hn, use_reentrant=False,
+                    preserve_rng_state=False)
             else:
-                y, a_loss = M.moe_ffn(lp["moe"], hn, arch)
+                y, a_loss = M.moe_ffn(lp["moe"], hn, arch, c("moe"))
             aux = aux + a_loss
         else:
-            y = L.mlp(lp["mlp"], hn)
-        h = h + y
+            y = L.mlp(lp["mlp"], hn, c("mlp_in"), c("mlp_out"))
+        h = constrain(h + y, c("add2"), _BSD)
         new_cache[f"l{j}"] = nc
     return h, aux, new_cache
 
@@ -265,9 +309,9 @@ def remat_context(policy: str):
     return lambda: create_selective_checkpoint_contexts(keep)
 
 
-def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
-              cache=None, cache_pos=None, block_tables=None, q_lens=None,
-              memory=None, time_chunk=64, remat=False,
+def run_stack(h, stack_params, arch: ArchConfig, segments=(), *, positions,
+              causal=True, cache=None, cache_pos=None, block_tables=None,
+              q_lens=None, memory=None, time_chunk=64, remat=False,
               remat_policy="nothing"):
     """Walk the units in order; returns (h, aux_loss, cache).  Unit u's
     parameters and cache are the views ``leaf[u]`` of the stacked trees,
@@ -279,20 +323,24 @@ def run_stack(h, stack_params, arch: ArchConfig, *, positions, causal=True,
     recomputes the rest.  The inner per-mixer checkpoints save nothing,
     as in the reference.  ``memory`` (see :func:`unit_forward`) goes to
     the checkpointed function as an input, so its gradient flows through
-    every unit's recompute."""
+    every unit's recompute.  ``segments`` (a ModelPlan's) gives each
+    unit its sublayer configs."""
     context_fn = remat_context(remat_policy)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for u in range(arch.n_units):
         unit_params = tree_map(lambda a: a[u], stack_params)
         unit_cache = (tree_map(lambda a: a[u], cache)
                       if cache is not None else None)
-        kw = dict(positions=positions, causal=causal, cache=unit_cache,
-                  cache_pos=cache_pos, block_tables=block_tables,
-                  q_lens=q_lens, time_chunk=time_chunk)
+        kw = dict(unit_plan=unit_plan_at(segments, u), positions=positions,
+                  causal=causal, cache=unit_cache, cache_pos=cache_pos,
+                  block_tables=block_tables, q_lens=q_lens,
+                  time_chunk=time_chunk)
         if remat and cache is None:
+            # ``kw`` (and each inner remat's config) is bound when the
+            # lambda is made: the recompute runs after the loop moved on
             h, a = checkpoint(
-                lambda h_, p_, m_: unit_forward(h_, p_, arch, memory=m_,
-                                                **kw)[:2],
+                lambda h_, p_, m_, kw=kw: unit_forward(h_, p_, arch,
+                                                       memory=m_, **kw)[:2],
                 h, unit_params, memory, use_reentrant=False,
                 preserve_rng_state=False, context_fn=context_fn)
         else:
@@ -311,21 +359,26 @@ def hidden_states(params, batch: dict, arch: ArchConfig, plan=None, *,
     stack + final norm -> ((B, S, D), aux_loss).  ``q_chunk`` is accepted
     for signature parity (the attention kernel does not chunk queries)."""
     check_arch(arch)
-    h = _embed_inputs(params, batch, arch)
+    plan = plan_or_uniform(plan, arch)
+    h = _embed_inputs(params, batch, arch, plan)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, aux, _ = run_stack(h, params["stack"], arch, positions=positions,
-                          causal=True, time_chunk=time_chunk, remat=remat,
+    h, aux, _ = run_stack(h, params["stack"], arch, plan.segments,
+                          positions=positions, causal=True,
+                          time_chunk=time_chunk, remat=remat,
                           remat_policy=remat_policy)
-    return L.apply_norm(params["final_norm"], h), aux
+    h = L.apply_norm(params["final_norm"], h)
+    return constrain(h, plan.final_norm, _BSD), aux
 
 
-def _embed_inputs(params, batch: dict, arch: ArchConfig):
+def _embed_inputs(params, batch: dict, arch: ArchConfig, plan=None):
     """The token embeddings, after the frontend's (B, F, D) embeddings
     (cast to their dtype) where the arch has a frontend and the batch
     carries one."""
-    h = L.embed(params["embed"], batch["tokens"])
+    cfg = plan.embed if plan is not None else R
+    h = L.embed(params["embed"], batch["tokens"], cfg)
     if arch.frontend and "frontend" in batch:
         h = torch.cat([batch["frontend"].to(h.dtype), h], dim=1)
+        h = constrain(h, cfg, _BSD)
     return h
 
 
@@ -336,7 +389,9 @@ def forward(params, batch: dict, arch: ArchConfig, plan=None, *,
     h, aux = hidden_states(params, batch, arch, plan, q_chunk=q_chunk,
                            time_chunk=time_chunk, remat=remat,
                            remat_policy=remat_policy)
-    return L.lm_head(params["lm_head"], h, params["embed"], arch), aux
+    plan = plan_or_uniform(plan, arch)
+    return L.lm_head(params["lm_head"], h, params["embed"], arch,
+                     plan.lm_head), aux
 
 
 def softmax_xent(logits, labels, z_loss_coef: float = 1e-4):
@@ -351,11 +406,23 @@ def softmax_xent(logits, labels, z_loss_coef: float = 1e-4):
     return loss, {"nll": nll.mean(), "accuracy": acc}
 
 
-def _xent_sums(hc, lc, w):
-    lf = (hc @ w).float()
+def _token_xent(lf, lc):
+    """Per token: log-sum-exp, the gold logit, and whether the argmax hit
+    it (float32 logits (B, T, V), labels (B, T))."""
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, lc.long()[..., None])[..., 0]
-    hit = (lf.argmax(-1) == lc).float()
+    return lse, gold, (lf.argmax(-1) == lc).float()
+
+
+def _xent_sums(hc, lc, w, cfg=R):
+    # the logits are laid out by the plan's lm_head config; on a realized
+    # plan the per-token terms are then taken on each shard's tokens with
+    # the vocab whole (DTensor's gather over a split vocab is unreliable)
+    lf = constrain(hc @ w, cfg, ("batch", "seq", "vocab"))
+    lf = constrain(lf, cfg, ("batch", "seq", None)).float()
+    bs = ("batch", "seq")
+    lse, gold, hit = run_local(_token_xent, [lf, lc], [bs + (None,), bs],
+                               [bs, bs, bs], allowed=bs)
     return (lse - gold).sum(), lse.square().sum(), hit.sum()
 
 
@@ -376,6 +443,7 @@ def chunked_lm_loss(h, labels, params, arch: ArchConfig, plan=None, *,
     for i in range(n):
         sl = slice(i * c, (i + 1) * c)
         dn, dz, da = checkpoint(_xent_sums, h[:, sl], labels[:, sl], w,
+                                plan_or_uniform(plan, arch).lm_head,
                                 use_reentrant=False, preserve_rng_state=False)
         nll, z, acc = nll + dn, z + dz, acc + da
     count = B * T
@@ -402,9 +470,12 @@ def loss_fn(params, batch: dict, arch: ArchConfig, plan=None, *,
     return loss, metrics
 
 
-def _head(params, h, arch):
-    h = L.apply_norm(params["final_norm"], h)
-    return L.lm_head(params["lm_head"], h, params["embed"], arch)
+def _head(params, h, arch, plan=None):
+    plan = plan_or_uniform(plan, arch)
+    h = constrain(L.apply_norm(params["final_norm"], h), plan.final_norm,
+                  _BSD)
+    return L.lm_head(params["lm_head"], h, params["embed"], arch,
+                     plan.lm_head)
 
 
 # --------------------------------------------------------------------------- #
@@ -485,16 +556,18 @@ def init_paged_cache(arch: ArchConfig, num_blocks: int, block_size: int,
             for j, spec in enumerate(arch.pattern)}
 
 
-def prefill(params, batch: dict, cache: dict, arch: ArchConfig):
+def prefill(params, batch: dict, cache: dict, arch: ArchConfig, plan=None):
     """Process the prompt (``batch["tokens"]`` (B, S), after
     ``batch["frontend"]`` for a frontend arch), filling ``cache`` from
     position 0; returns (last-position logits (B, 1, V), cache)."""
     check_arch(arch)
-    h = _embed_inputs(params, batch, arch)
+    plan = plan_or_uniform(plan, arch)
+    h = _embed_inputs(params, batch, arch, plan)
     positions = torch.arange(h.shape[1], device=h.device)
-    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
-                         causal=True, cache=cache, cache_pos=0)
-    return _head(params, h[:, -1:, :], arch), cache
+    h, _, cache = run_stack(h, params["stack"], arch, plan.segments,
+                            positions=positions, causal=True, cache=cache,
+                            cache_pos=0)
+    return _head(params, h[:, -1:, :], arch, plan), cache
 
 
 def decode_positions(pos, batch: int, device=None):
@@ -511,24 +584,25 @@ def decode_positions(pos, batch: int, device=None):
         f"token batch; got shape {tuple(pos.shape)}")
 
 
-def decode_step(params, token, cache: dict, pos, arch: ArchConfig, *,
-                block_tables=None):
+def decode_step(params, token, cache: dict, pos, arch: ArchConfig,
+                plan=None, *, block_tables=None):
     """One decode step.  token: (B, 1); pos: scalar or (B,) (see
     :func:`decode_positions`).  With ``block_tables`` the KV leaves are
     the paged pool and ``pos`` must be (B,)."""
     check_arch(arch)
-    h = L.embed(params["embed"], token)
+    plan = plan_or_uniform(plan, arch)
+    h = L.embed(params["embed"], token, plan.embed)
     positions, cache_pos = decode_positions(pos, token.shape[0], token.device)
     if block_tables is not None and cache_pos.ndim != 1:
         raise ValueError("paged decode (block_tables) requires a (B,) "
                          "per-slot pos vector")
-    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
-                         causal=True, cache=cache, cache_pos=cache_pos,
-                         block_tables=block_tables)
-    return _head(params, h, arch), cache
+    h, _, cache = run_stack(h, params["stack"], arch, plan.segments,
+                            positions=positions, causal=True, cache=cache,
+                            cache_pos=cache_pos, block_tables=block_tables)
+    return _head(params, h, arch, plan), cache
 
 
-def step(params, tokens, cache: dict, pos, arch: ArchConfig, *,
+def step(params, tokens, cache: dict, pos, arch: ArchConfig, plan=None, *,
          q_lens=None, block_tables=None):
     """One unified mixed step: row b advances ``q_lens[b]`` of its T
     tokens from cache depth ``pos[b]`` (decoding slots 1, a prefill chunk
@@ -553,9 +627,11 @@ def step(params, tokens, cache: dict, pos, arch: ArchConfig, *,
                 f"batch; got shape {tuple(q_lens.shape)}")
     elif T > 1:
         q_lens = torch.full((B,), T, dtype=torch.int32, device=tokens.device)
-    h = L.embed(params["embed"], tokens)
+    plan = plan_or_uniform(plan, arch)
+    h = L.embed(params["embed"], tokens, plan.embed)
     positions = pos[:, None] + torch.arange(T, device=tokens.device)[None, :]
-    h, _, cache = run_stack(h, params["stack"], arch, positions=positions,
-                         causal=True, cache=cache, cache_pos=pos,
-                         block_tables=block_tables, q_lens=q_lens)
-    return _head(params, h, arch), cache
+    h, _, cache = run_stack(h, params["stack"], arch, plan.segments,
+                            positions=positions, causal=True, cache=cache,
+                            cache_pos=pos, block_tables=block_tables,
+                            q_lens=q_lens)
+    return _head(params, h, arch, plan), cache

@@ -15,9 +15,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.config import LayerConfig
+from repro_torch.core.sharding import constrain
 from repro_torch.kernels import ops
 
 from .layers import dense_init
+
+R = LayerConfig.REPLICATED
 
 
 def init_moe(arch, dtype, *, generator, device, lead=()):
@@ -38,11 +42,14 @@ def capacity(tokens: int, arch) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def route(p: dict, x, arch):
+def route(p: dict, x, arch, cfg: LayerConfig = R):
     """x: (B, S, D) -> (gate_vals (B, S, K) in x's dtype, expert_idx
     (B, S, K), probs (B, S, E) float32).  The router runs in float32; the
-    top-k gates are renormalised to sum to one (floor 1e-9)."""
+    top-k gates are renormalised to sum to one (floor 1e-9).  On a
+    realized plan the softmax and the top-k see every expert (the
+    router's columns may be split over the expert axes)."""
     logits = x.float() @ p["router"].float()
+    logits = constrain(logits, cfg, ("batch", "seq", None))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, arch.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -50,15 +57,19 @@ def route(p: dict, x, arch):
     return gate_vals.to(x.dtype), expert_idx, probs
 
 
-def moe_ffn(p: dict, x, arch):
+def moe_ffn(p: dict, x, arch, cfg: LayerConfig = R):
     """x: (B, S, D) -> (y (B, S, D), aux_loss float32 scalar), the
     Switch/GShard load-balancing loss ``E * sum_e frac_tokens_e *
-    frac_probs_e / K``."""
+    frac_probs_e / K``.  ``cfg`` (the plan's ``moe`` config) may shard
+    batch/seq, expert (expert parallelism) and d_ff; the dispatch applies
+    it through its ``constrain`` callback."""
     S = x.shape[1]
     E, K = arch.n_experts, arch.top_k
-    gate_vals, expert_idx, probs = route(p, x, arch)
-    y = ops.moe_dispatch_combine(x, gate_vals, expert_idx, p["wi"], p["wg"],
-                                 p["wo"], capacity=capacity(S, arch))
+    gate_vals, expert_idx, probs = route(p, x, arch, cfg)
+    y = ops.moe_dispatch_combine(
+        x, gate_vals, expert_idx, p["wi"], p["wg"], p["wo"],
+        capacity=capacity(S, arch),
+        constrain=lambda a, dims: constrain(a, cfg, dims))
     onehot = F.one_hot(expert_idx, E).sum(2).float()          # (B, S, E)
     frac_tokens = onehot.mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))

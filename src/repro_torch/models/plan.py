@@ -5,8 +5,9 @@ The search assigns a :class:`LayerConfig` to every *graph node* (named
 ``L{i}.{sub}``, see graph_export).  Models consume a :class:`ModelPlan`:
 per-pattern-unit dicts of sublayer configs, grouped into **segments** of
 consecutive units with identical plans (the reference compiles one loop
-a segment) — the layer-wise strategy is exactly a segmentation.  On one
-device the port's models take a plan and place nothing by it.
+a segment) — the layer-wise strategy is exactly a segmentation.  The
+port's models constrain their activations by it under an active mesh
+and place nothing by it without one.
 
 A ModelPlan is single-phase: it realizes one strategy for one workload
 shape.  The phase-aware, serializable artifact carrying one ModelPlan per

@@ -21,6 +21,9 @@ the CUDA kernel on the card in every form (stateless for training and
 CPU.  ``mamba_mix`` writes the new state into the cache leaves it was
 given (``copy_``), so the views a mixed step passes for one row take the
 update.
+
+Each mixer takes its sublayer's ``cfg`` (replicated by default) and
+constrains its activations at the reference's points.
 """
 
 from __future__ import annotations
@@ -30,9 +33,15 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.config import LayerConfig
+from repro_torch.core.sharding import (constrain, flatten_last2, is_dtensor,
+                                       unflatten)
 from repro_torch.kernels import ops
 
 from .layers import dense_init
+
+R = LayerConfig.REPLICATED
+_BSD = ("batch", "seq", "d_model")
 
 
 def token_shift(x, prev):
@@ -84,7 +93,7 @@ def init_rwkv_tmix(arch, dtype, *, generator, device, lead=()):
 
 
 def rwkv_tmix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
-              q_lens=None):
+              q_lens=None, cfg: LayerConfig = R):
     """x: (B, S, D) -> (y, new_state).  state: {"shift": (B, D), "wkv":
     (B, H, hs, hs)}.  Without ``state`` the returned ``new_state["wkv"]``
     is None (training discards it, and asking for it would keep the
@@ -100,18 +109,21 @@ def rwkv_tmix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
     mu = p["mu"]
     xr, xk, xv, xg, xw = (x + mu[i] * (sh - x) for i in range(5))
 
-    r = (xr @ p["wr"]).reshape(B, S, H, hs)
-    k = (xk @ p["wk"]).reshape(B, S, H, hs)
-    v = (xv @ p["wv"]).reshape(B, S, H, hs)
+    heads = lambda t: unflatten(t, -1, (H, hs))
+    r = heads(xr @ p["wr"])
+    k = heads(xk @ p["wk"])
+    v = heads(xv @ p["wv"])
     g = F.silu(xg @ p["wg"])
     w_log = p["w0"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
-    w = torch.exp(-torch.exp(w_log.float())).reshape(B, S, H, hs)
+    w = heads(torch.exp(-torch.exp(w_log.float())))
 
     if q_lens is not None:
         valid = (torch.arange(S, device=x.device)[None, :]
                  < q_lens[:, None])[..., None, None]        # (B, S, 1, 1)
         w = torch.where(valid, w, torch.ones_like(w))
         k = torch.where(valid, k, torch.zeros_like(k))
+    r, k, v = (constrain(t, cfg, ("batch", "seq", "heads", None))
+               for t in (r, k, v))
 
     hm = lambda a: a.transpose(1, 2).contiguous()           # (B, H, S, hs)
     u = p["u"].float()
@@ -121,15 +133,15 @@ def rwkv_tmix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
     else:
         o = ops.wkv6(hm(r), hm(k), hm(v), hm(w), u, chunk=chunk)
         Sn = None
-    o = o.transpose(1, 2).reshape(B, S, D).to(x.dtype)
+    o = flatten_last2(o.transpose(1, 2)).to(x.dtype)
 
     # per-head group norm
-    of = o.reshape(B, S, H, hs).float()
+    of = heads(o).float()
     of = (of - of.mean(-1, keepdim=True)) * torch.rsqrt(
         of.var(-1, keepdim=True, correction=0) + 1e-5)
-    o = (of.reshape(B, S, D) * p["ln_x"].float()).to(x.dtype)
+    o = (flatten_last2(of) * p["ln_x"].float()).to(x.dtype)
 
-    y = (o * g) @ p["wo"]
+    y = constrain((o * g) @ p["wo"], cfg, _BSD)
     return y, {"shift": _shift_state(x, prev, q_lens), "wkv": Sn}
 
 
@@ -147,7 +159,8 @@ def init_rwkv_cmix(arch, dtype, *, generator, device, lead=()):
     }
 
 
-def rwkv_cmix(p: dict, x, arch, state: dict | None = None, q_lens=None):
+def rwkv_cmix(p: dict, x, arch, state: dict | None = None, q_lens=None,
+              cfg: LayerConfig = R):
     """x: (B, S, D) -> (y, {"shift": (B, D)})."""
     prev = state["shift"] if state is not None else None
     sh = token_shift(x, prev)
@@ -155,8 +168,9 @@ def rwkv_cmix(p: dict, x, arch, state: dict | None = None, q_lens=None):
     xk = x + mu[0] * (sh - x)
     xr = x + mu[1] * (sh - x)
     k = torch.square(torch.relu(xk @ p["wk"]))
+    k = constrain(k, cfg, ("batch", "seq", "d_ff"))
     v = k @ p["wv"]
-    y = torch.sigmoid(xr @ p["wr"]) * v
+    y = constrain(torch.sigmoid(xr @ p["wr"]) * v, cfg, _BSD)
     return y, {"shift": _shift_state(x, prev, q_lens)}
 
 
@@ -205,7 +219,7 @@ def _causal_conv1d(x, w, b, state=None):
 
 
 def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
-              q_lens=None):
+              q_lens=None, cfg: LayerConfig = R):
     """x: (B, S, D) -> (y, new_state).  state: {"conv": (B, k-1, di),
     "ssm": (B, di, N) float32}, updated in place (``copy_``) and returned;
     without ``state`` the returned ``new_state["ssm"]`` is None (training
@@ -222,6 +236,9 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
 
     xz = x @ p["in_proj"]
     x1, z = torch.split(xz, di, dim=-1)
+    if is_dtensor(xz):
+        x1, z = x1.contiguous(), z.contiguous()
+    x1 = constrain(x1, cfg, _BSD)
     conv_state = state["conv"] if state is not None else None
     x1, xp = _causal_conv1d(x1, p["conv_w"], p["conv_b"], conv_state)
     if q_lens is None:
@@ -232,9 +249,16 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
         new_conv = torch.gather(xp, 1, gi[..., None].expand(B, kw - 1, di))
     x1 = F.silu(x1)
 
-    dbl = x1 @ p["x_proj"]
+    # on a mesh the two small projections' outputs are laid out by batch
+    # and seq first (the port's own points): a partial sum over a split
+    # d_inner or rank carried into the next product asks torch 2.11's
+    # DTensor for a redistribute from a shard to a partial it lacks
+    dbl = constrain(x1 @ p["x_proj"], cfg, ("batch", "seq", None))
     dt, Bm, Cm = torch.split(dbl, [rank, N, N], dim=-1)
-    dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
+    if is_dtensor(dbl):     # DTensor's matmul backward views its operands
+        dt, Bm, Cm = dt.contiguous(), Bm.contiguous(), Cm.contiguous()
+    dt = constrain(dt @ p["dt_proj"], cfg, _BSD)
+    dt = F.softplus(dt + p["dt_bias"])
     if q_lens is not None:
         valid = torch.arange(S, device=x.device)[None, :] < q_lens[:, None]
         dt = dt * valid[..., None].to(dt.dtype)
@@ -254,4 +278,4 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
                            chunk=chunk)
         new_state = {"conv": new_conv, "ssm": None}
     y = y * F.silu(z)
-    return y @ p["out_proj"], new_state
+    return constrain(y @ p["out_proj"], cfg, _BSD), new_state

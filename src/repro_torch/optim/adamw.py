@@ -19,6 +19,9 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.sharding import P, whole
+from repro_torch.plans.shardings import distribute, tree_map
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -60,15 +63,24 @@ def _zeros_like(tree):
     return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
 
 
-def adamw_init(params) -> dict:
+def adamw_init(params, moment_shardings=None) -> dict:
+    """Zero moments (float32) and step.  ``moment_shardings`` (a tree of
+    ``NamedSharding``, e.g. ``to_shardings`` of
+    :func:`zero1_state_pspecs`) lays the moments out as DTensors."""
     device = next(_leaves(params)).device
-    return {"m": _zeros_like(params), "v": _zeros_like(params),
+    m, v = _zeros_like(params), _zeros_like(params)
+    if moment_shardings is not None:
+        m = distribute(m, moment_shardings)
+        v = distribute(v, moment_shardings)
+    return {"m": m, "v": v,
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
 def global_norm(tree) -> torch.Tensor:
+    """The norm over every leaf (a realized leaf's partial sums gathered
+    into a plain scalar)."""
     return torch.sqrt(torch.stack(
-        [x.float().square().sum() for x in _leaves(tree)]).sum())
+        [whole(x.float().square().sum()) for x in _leaves(tree)]).sum())
 
 
 @torch.no_grad()
@@ -100,3 +112,39 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         p.copy_((p.float() - lr * delta).to(p.dtype))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+# --------------------------------------------------------------------------- #
+# ZeRO-1: shard the moments over the data axes
+# --------------------------------------------------------------------------- #
+def zero1_state_pspecs(param_pspecs, params_shapes,
+                       data_axes: tuple[str, ...],
+                       mesh_axis_sizes: dict[str, int]):
+    """Given the params' spec tree and a matching tree of their shapes
+    (or of leaves with a ``shape``), return the moments' specs: the data
+    axes (those not already used) added on the largest dim whose entry is
+    free and whose size the data degree divides."""
+    def one(spec, leaf):
+        shape = tuple(getattr(leaf, "shape", leaf))
+        if not shape:
+            return spec
+        entries = list(spec) + [None] * (len(shape) - len(spec))
+        used = set()
+        for e in entries:
+            if e is None:
+                continue
+            used.update(e if isinstance(e, tuple) else (e,))
+        free_axes = tuple(a for a in data_axes if a not in used)
+        deg = (math.prod(mesh_axis_sizes[a] for a in free_axes)
+               if free_axes else 1)
+        if deg <= 1:
+            return spec
+        cands = [(shape[i], i) for i in range(len(shape))
+                 if entries[i] is None and shape[i] % deg == 0]
+        if not cands:
+            return spec
+        _, i = max(cands)
+        entries[i] = free_axes if len(free_axes) > 1 else free_axes[0]
+        return P(*entries)
+
+    return tree_map(one, param_pspecs, params_shapes)

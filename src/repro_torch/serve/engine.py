@@ -23,8 +23,14 @@
 * Slots retire on EOS or ``max_new_tokens`` and take new work at once
   (``"continuous"``) or when the pool drains (``"static"``).
 * A plan (``plan=``, a ``ParallelPlan`` or ``ModelPlan``) is checked
-  against the arch and resolved per phase, as the reference's is; on one
-  device it places nothing.
+  against the arch and resolved per phase, as the reference's is.  Under
+  ``core.use_mesh`` (a ``DeviceMesh``) the engine realizes it: the
+  parameters by the decode phase's specs, the cache once by its
+  ``cache_pspecs`` with the slot and sequence dims whole (a paged pool
+  keeps its blocks whole and splits heads); the caller runs the engine
+  under that same mesh.  The engine's own cache writes (admission, copy-on-write, slot
+  resets) run on each rank's local shard, the source laid out as the
+  cache first.  Without a mesh it places nothing.
 * A frontend arch (a VLM) is served on text prompts alone: the engine
   passes no ``frontend``, as the reference's does.  An encoder-decoder
   raises (``launch/serve.py`` serves it in lockstep).
@@ -34,22 +40,42 @@ The cache is updated in place (the reference donated it to jit).
 
 from __future__ import annotations
 
+import functools
 import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import current_mesh, is_dtensor
 from repro_torch.kernels.quant import quantize_kv
 from repro_torch.models import is_encdec, lm
 from repro_torch.models.arch import ArchConfig
 from repro_torch.models.plan import ModelPlan
-from repro_torch.plans.parallel_plan import ParallelPlan
+from repro_torch.plans.parallel_plan import ParallelPlan, as_model_plan
+from repro_torch.plans.shardings import (cache_pspecs, distribute,
+                                         param_pspecs, to_shardings)
 
 from .config import ServeConfig
 from .fns import _is_kv_path, make_serve_fns
 from .paging import BlockAllocator, PoolExhausted, PrefixCache
 from .scheduler import Completion, Request, SlotScheduler
+
+
+def _inference(method):
+    """``torch.inference_mode`` around an engine method; ``no_grad`` on a
+    realized plan (a DTensor view cannot be taken in inference mode)."""
+    @functools.wraps(method)
+    def run(self, *a, **kw):
+        with (torch.no_grad() if self.mesh is not None
+              else torch.inference_mode()):
+            return method(self, *a, **kw)
+    return run
+
+
+def _local(t):
+    """A realized leaf's local shard (the tensor itself otherwise)."""
+    return t.to_local() if is_dtensor(t) else t
 
 
 def write_slot(pool: dict, row: dict, slot, block_ids=None) -> dict:
@@ -64,22 +90,25 @@ def write_slot(pool: dict, row: dict, slot, block_ids=None) -> dict:
     prompt rounded up to whole blocks, land in pool blocks ``block_ids``
     ((nb,) int64), each overwritten in full.  An int8 pool quantizes the
     row's K/V on write and scatters payload and scale rows into the same
-    blocks; any other leaf takes the slot-row overwrite at ``slot``."""
+    blocks; any other leaf takes the slot-row overwrite at ``slot``.
+    Realized leaves are written on their local shards (``row`` laid out
+    as ``pool``: the slot and block dims whole on every rank)."""
     nb = 0 if block_ids is None else block_ids.shape[0]
     for path, p in lm.tree_leaves(pool):
         r = row
         for key in path[:-1]:
             r = r[key]
         name = path[-1]
+        p = _local(p)
         if block_ids is None or not _is_kv_path(path):
-            p[:, slot] = r[name][:, 0].to(p.dtype)
+            p[:, slot] = _local(r[name])[:, 0].to(p.dtype)
             continue
         n, _, bs = p.shape[:3]
         if name in ("k_scale", "v_scale"):
-            _, s = quantize_kv(r[name[0]][:, 0])           # (n, nb*bs, KH)
+            _, s = quantize_kv(_local(r[name[0]])[:, 0])   # (n, nb*bs, KH)
             p[:, block_ids] = s.reshape(n, nb, bs, *s.shape[2:]).to(p.dtype)
             continue
-        x = r[name][:, 0]
+        x = _local(r[name])[:, 0]
         if p.dtype == torch.int8:
             x, _ = quantize_kv(x)
         p[:, block_ids] = x.reshape(n, nb, bs, *p.shape[3:]).to(p.dtype)
@@ -91,6 +120,7 @@ def copy_block(pool: dict, src: int, dst: int) -> dict:
     ``dst`` across every unit's K and V pool (payload and scales)."""
     for path, p in lm.tree_leaves(pool):
         if _is_kv_path(path):
+            p = _local(p)
             p[:, dst] = p[:, src]
     return pool
 
@@ -103,7 +133,7 @@ def reset_slot_state(cache: dict, slot: int) -> dict:
     the call keeps the reference's admission sequence.)"""
     for path, leaf in lm.tree_leaves(cache):
         if not _is_kv_path(path):
-            leaf[:, slot] = 0
+            _local(leaf)[:, slot] = 0
     return cache
 
 
@@ -131,9 +161,15 @@ class ServeEngine:
             raise NotImplementedError(
                 "ServeEngine covers decoder-only LMs; encoder-decoder "
                 "serving uses the static driver path")
-        self.params = params
         self.arch = arch
         self.config = config
+        self.mesh = current_mesh()
+        self._decode_plan = as_model_plan(plan, arch, "decode")
+        if self.mesh is not None and not is_dtensor(params["embed"]["table"]):
+            params = distribute(params, to_shardings(
+                param_pspecs(params, arch, self._decode_plan), self.mesh,
+                like=params))
+        self.params = params
         self.device = params["embed"]["table"].device
         self.max_batch = int(config.max_batch)
         self.max_len = int(config.max_len)
@@ -162,17 +198,17 @@ class ServeEngine:
                       else self.max_batch * pages)
             self._alloc = BlockAllocator(usable + 1, self.block_size,
                                          self.max_batch, pages)
-            self.cache = lm.init_paged_cache(
+            self.cache = self._place(lm.init_paged_cache(
                 arch, usable + 1, self.block_size, self.max_batch,
-                self.dtype, kv_quant=self.kv_quant, device=self.device)
+                self.dtype, kv_quant=self.kv_quant, device=self.device),
+                paged=True)
             self.scheduler = SlotScheduler(
                 self.max_batch, config.policy, block_size=self.block_size,
                 total_blocks=usable, max_len=self.max_len,
                 pinned_blocks=lambda: self._alloc.pinned_shared)
         else:
             self._alloc = None
-            self.cache = lm.init_cache(arch, self.max_batch, self.max_len,
-                                       self.dtype, device=self.device)
+            self.cache = self._new_rows(self.max_batch, self.max_len)
             self.scheduler = SlotScheduler(self.max_batch, config.policy)
         # prefix sharing needs blocks to point at, a chunk that can start
         # at the first uncached token, and a stack whose per-token state is
@@ -194,14 +230,29 @@ class ServeEngine:
         }
 
     # ---------------------------------------------------------------- #
+    def _place(self, cache: dict, *, paged: bool = False) -> dict:
+        """Lay a cache out by the decode phase's specs, slots whole (see
+        the module docstring); the cache itself without a mesh."""
+        if self.mesh is None:
+            return cache
+        specs = cache_pspecs(cache, self.arch, self._decode_plan,
+                             paged=paged, slots_whole=True)
+        return distribute(cache, to_shardings(specs, self.mesh, like=cache))
+
+    def _new_rows(self, batch: int, length: int) -> dict:
+        """Dense KV rows (and slot state), laid out for the engine."""
+        return self._place(lm.init_cache(self.arch, batch, length, self.dtype,
+                                         device=self.device))
+
     @property
     def busy(self) -> bool:
         return bool(self.queue) or bool(self.scheduler.active)
 
     @property
     def kv_bytes_reserved(self) -> int:
-        """Bytes allocated for the KV pool (payload and scales)."""
-        return sum(t.numel() * t.element_size()
+        """Bytes allocated for the KV pool (payload and scales; on this
+        rank, for a realized cache)."""
+        return sum(_local(t).numel() * t.element_size()
                    for path, t in lm.tree_leaves(self.cache)
                    if _is_kv_path(path))
 
@@ -278,7 +329,7 @@ class ServeEngine:
         """argmax of each row's single next-token column."""
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32).cpu().numpy()
 
-    @torch.inference_mode()
+    @_inference
     def warmup(self, prompt_lens=()) -> float:
         """Run every step shape the serve loop will issue once before
         anything is timed (builds and loads the kernels, warms cuBLAS's
@@ -302,8 +353,7 @@ class ServeEngine:
                 self.cache = copy_block(self.cache, 0, 0)
         else:
             for plen in sorted({int(p) for p in prompt_lens}):
-                row = lm.init_cache(self.arch, 1, self._prompt_row_len(plen),
-                                    self.dtype, device=self.device)
+                row = self._new_rows(1, self._prompt_row_len(plen))
                 logits, row = self._prefill(
                     self.params,
                     {"tokens": torch.zeros((1, plen), dtype=torch.int64,
@@ -388,8 +438,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         tokens = torch.as_tensor(req.prompt, dtype=torch.int64,
                                  device=self.device)[None, :]
-        row = lm.init_cache(self.arch, 1, self._prompt_row_len(len(req.prompt)),
-                            self.dtype, device=self.device)
+        row = self._new_rows(1, self._prompt_row_len(len(req.prompt)))
         logits, row = self._prefill(self.params, {"tokens": tokens}, row)
         ids = None
         if self.paged:
@@ -515,7 +564,7 @@ class ServeEngine:
         self.stats["decode_tokens"] += len(active)
         return done
 
-    @torch.inference_mode()
+    @_inference
     def step(self) -> list[Completion]:
         """Admit every admissible queued request, then run one step over
         the pool; returns the requests that finished.  When a slot was

@@ -3,17 +3,19 @@
 ``make_serve_fns`` returns ``(prefill, step)`` over the port's dense,
 MoE, RWKV6, Mamba-hybrid and VLM LMs, and over the encoder-decoder, whose
 step is single-token decode only (as in the reference).
-There is no jit: PyTorch runs eagerly on one device, and the cache is
-updated in place where the reference donated it to jit.  A plan is taken
-and resolved per phase as the reference's is (arch-checked; prefill under
-its ``prefill`` phase, the step under its ``decode`` phase), and on one
-device places nothing.
+There is no jit: PyTorch runs eagerly, and the cache is updated in
+place where the reference donated it to jit.  A plan is taken and
+resolved per phase as the reference's is (arch-checked; prefill under
+its ``prefill`` phase, the step under its ``decode`` phase).  On a
+realized plan (DTensor params and cache, the caller under ``use_mesh``)
+both functions return the logits as plain (gathered) tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.sharding import whole
 from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
 from repro_torch.models.plan import ModelPlan
@@ -39,7 +41,8 @@ def make_serve_fns(arch: ArchConfig,
     """Build ``(prefill, step)``.
 
     ``plan`` is resolved per phase (``as_model_plan``: a ``ParallelPlan``
-    is checked against ``arch``) and places nothing on one device.
+    is checked against ``arch``); its configs constrain the activations
+    under an active mesh and place nothing without one.
 
     ``step(params, tokens, cache, pos, q_lens=None, block_tables=None)``
     is the unified mixed step over a paged cache (``block_tables`` given)
@@ -60,11 +63,13 @@ def make_serve_fns(arch: ArchConfig,
     ``step`` is ``encdec.decode_step`` and raises on ``q_lens`` or
     ``block_tables``.
     """
-    as_model_plan(plan, arch, "decode")        # checks the arch
+    pre_plan = as_model_plan(plan, arch, "prefill")
+    dec_plan = as_model_plan(plan, arch, "decode")
     mod = model_module(arch)
 
     def prefill(params, batch, cache):
-        return mod.prefill(params, batch, cache, arch)
+        logits, cache = mod.prefill(params, batch, cache, arch, pre_plan)
+        return whole(logits), cache
 
     if mod is not lm:
         def decode(params, tokens, cache, pos, q_lens=None,
@@ -73,12 +78,15 @@ def make_serve_fns(arch: ArchConfig,
                 raise NotImplementedError(
                     f"{arch.name}: mixed-step serving (q_lens/block_tables) "
                     "is decoder-only for now")
-            return mod.decode_step(params, tokens, cache, pos, arch)
+            logits, cache = mod.decode_step(params, tokens, cache, pos,
+                                            arch, dec_plan)
+            return whole(logits), cache
         return prefill, decode
 
     def _model_step(params, tokens, cache, pos, q_lens, block_tables):
-        return lm.step(params, tokens, cache, pos, arch, q_lens=q_lens,
-                       block_tables=block_tables)
+        logits, cache = lm.step(params, tokens, cache, pos, arch, dec_plan,
+                                q_lens=q_lens, block_tables=block_tables)
+        return whole(logits), cache
 
     def step(params, tokens, cache, pos, q_lens=None, block_tables=None):
         if q_lens is None or tokens.shape[1] == 1:

@@ -15,6 +15,13 @@ Gradients come from ``torch.autograd.grad`` of the port's ``loss_fn``
 On the card the attention and WKV6 kernels run forward and their
 ``autograd.Function``s differentiate the plain versions, as the
 reference's ``with_reference_vjp`` does.
+
+On a realized plan (the caller runs the step under ``core.use_mesh``) the
+parameters, the batch and the moments are DTensors (:func:`realize`; the
+moments ZeRO-1, ``optim.zero1_state_pspecs``): the model runs its
+activations per the plan's train phase, each gradient is brought to its
+parameter's placement (the data-parallel reduction), the f32
+accumulators follow, and the metrics come back as plain scalars.
 """
 
 from __future__ import annotations
@@ -23,9 +30,14 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch.core.sharding import is_dtensor, whole
 from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
-from repro_torch.optim import AdamWConfig, adamw_update
+from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
+                               zero1_state_pspecs)
+from repro_torch.plans.parallel_plan import as_model_plan
+from repro_torch.plans.shardings import (batch_pspecs, distribute,
+                                         param_pspecs, to_shardings)
 
 
 @dataclass(frozen=True)
@@ -47,19 +59,48 @@ class TrainConfig:
 def _check_unstaged(plan) -> None:
     """A ``ParallelPlan`` (anything with ``stage_for``) whose train phase
     is pipeline-staged needs the 1F1B step, which the port lacks.  Any
-    other plan (a ``ModelPlan``) only places tensors, a no-op on one
-    device."""
+    other plan only places tensors."""
     stage_for = getattr(plan, "stage_for", None)
     if stage_for is not None and stage_for("train").num_stages > 1:
         raise NotImplementedError(
-            "a pipeline-staged (1F1B) train step arrives with the "
-            "realization slice (ROADMAP.md A7); the port trains unstaged")
+            "a pipeline-staged train step needs the 1F1B schedule, the next "
+            "slice of ROADMAP.md A7; the port trains unstaged")
+
+
+def _like_param(g, t):
+    """The gradient on its parameter's placement (a partial sum over the
+    data axes is all-reduced here)."""
+    if is_dtensor(t) and tuple(g.placements) != tuple(t.placements):
+        return g.redistribute(t.device_mesh, t.placements)
+    return g
+
+
+def realize(params, arch: ArchConfig, plan, mesh):
+    """The train state on ``mesh`` by ``plan`` (a ``ModelPlan``): params
+    by ``param_pspecs``, fresh AdamW state with ZeRO-1 moments over the
+    ``data`` axis; returns (params, opt_state, place_batch), the last
+    laying a batch out by ``batch_pspecs``."""
+    specs = param_pspecs(params, arch, plan)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    moments = to_shardings(zero1_state_pspecs(specs, params, ("data",),
+                                              sizes), mesh, like=params)
+    params = distribute(params, to_shardings(specs, mesh, like=params))
+
+    def place_batch(batch):
+        return distribute(batch, to_shardings(batch_pspecs(batch, plan),
+                                              mesh, like=batch))
+    return params, adamw_init(params, moment_shardings=moments), place_batch
 
 
 def make_train_step(arch: ArchConfig, plan=None,
                     cfg: TrainConfig | None = None):
+    """``plan``: a ``ParallelPlan`` (its train phase), a ``ModelPlan`` or
+    None (uniform).  On a realized plan the caller lays params, moments
+    and batch out on the mesh (:func:`realize`) and runs the step under
+    ``use_mesh``."""
     cfg = cfg or TrainConfig()
     _check_unstaged(plan)
+    plan = as_model_plan(plan, arch, "train")
     if cfg.microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {cfg.microbatches}")
     mod = model_module(arch)
@@ -75,7 +116,7 @@ def make_train_step(arch: ArchConfig, plan=None,
         loss, metrics = mod.loss_fn(tree, batch, arch, plan, **kw)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # a leaf the loss does not reach gets zeros, as under jax.grad
-        grads = [torch.zeros_like(t) if g is None else g
+        grads = [torch.zeros_like(t) if g is None else _like_param(g, t)
                  for t, g in zip(leaves, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
@@ -105,6 +146,6 @@ def make_train_step(arch: ArchConfig, plan=None,
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              cfg.optimizer)
         metrics.update(om)
-        return params, opt_state, metrics
+        return params, opt_state, {k: whole(v) for k, v in metrics.items()}
 
     return train_step

@@ -42,7 +42,8 @@ MODULES = [
     "repro_torch.core.config", "repro_torch.core.cost_model",
     "repro_torch.core.device", "repro_torch.core.elimination",
     "repro_torch.core.graph", "repro_torch.core.scan",
-    "repro_torch.core.search", "repro_torch.core.stages",
+    "repro_torch.core.search", "repro_torch.core.sharding",
+    "repro_torch.core.stages",
     "repro_torch.core.strategies", "repro_torch.data.pipeline",
     "repro_torch.device", "repro_torch.kernels.build",
     "repro_torch.kernels.decode_attention",
@@ -51,13 +52,15 @@ MODULES = [
     "repro_torch.kernels.moe_dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
-    "repro_torch.launch.serve", "repro_torch.launch.train",
+    "repro_torch.launch.mesh", "repro_torch.launch.serve",
+    "repro_torch.launch.train",
     "repro_torch.models.encdec", "repro_torch.models.graph_export",
     "repro_torch.models.layers", "repro_torch.models.lm",
     "repro_torch.models.plan",
     "repro_torch.models.moe", "repro_torch.models.recurrent",
     "repro_torch.optim.adamw", "repro_torch.plans.parallel_plan",
-    "repro_torch.plans.search", "repro_torch.serve.engine",
+    "repro_torch.plans.search", "repro_torch.plans.shardings",
+    "repro_torch.serve.engine",
     "repro_torch.serve.fns", "repro_torch.train.step",
 ]
 

@@ -455,7 +455,7 @@ def _staged_plans(tmp_path) -> dict:
                                   ["--autotune-cache-dir", "x"]])
 def test_train_command_names_the_slice_of_a_later_flag(flag, tmp_path):
     """A pipeline-staged train plan (loaded, or reached by the phase
-    fallback) needs the realization slice; the profiler's and the
+    fallback) needs the 1F1B slice; the profiler's and the
     dispatcher's flags name theirs."""
     from repro_torch.launch import train
     files = _staged_plans(tmp_path)
