@@ -133,7 +133,21 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    ``--strategy searched --save-plan``, ``--plan`` on that file and
    ``--plan`` on the node plan (the paged decode launched, the tokens
    equal).
-7. realize: a searched plan realized on a one-device ``("data",
+7. profile: the device profile and the kernel dispatcher.  The profile
+   command (``repro_torch.launch.profile``) at the smoke ladders: every
+   ``cuda`` entry of its sweep must launch its kernel and the JSON load
+   back equal; then at its default ladders (matmuls to 2048, streams from
+   64 MiB), the profile that calibrates: the float32 GEMM rate (no TF32,
+   as the port computes), the bfloat16 one beside it, the HBM rate, each
+   (op, backend) time and factor.  llama3.2-1b's f32 train step priced by
+   the calibrated cost model on one H100 beside the analytic price and
+   the plan phase's measured step, and its train plan searched on the
+   2 x 4 node mesh under the profile.  The reference phase's small llama
+   served with ``kernel_backend="ref"`` and by default (tokens equal, no
+   launch under ``ref``, the default run's launches the reference
+   phase's); the serve command twice into one ``--autotune-cache-dir``
+   (the second run re-tunes nothing).
+8. realize: a searched plan realized on a one-device ``("data",
    "model")`` mesh (a world-1 ``nccl`` process group, its store under
    ``build/``; DTensor params, batch, cache and ZeRO-1 moments, the
    model under ``use_mesh``), each run beside the same run unrealized:
@@ -149,7 +163,7 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    all eight kernel bodies, each on the shard-local path.  Step time,
    peak memory and inter-token latency both ways (the host's DTensor
    dispatch overhead).  Its launches are not added to the kernels line.
-8. the ``kernels`` JSON line, the card's name and power limit, and the
+9. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -2608,6 +2622,207 @@ def phase_plan(torch, device):
     return counts
 
 
+# the profile phase: the small llama of the reference phase (hd 64), the
+# serve command's runs that fill and then read one autotune cache, the
+# kernels each op of the profiler's sweep launches, and the GEMM ladder
+# timed beside the profile's
+PROFILE_SERVE = ["--arch", "llama3.2-1b", "--batch", "4", "--requests", "4",
+                 "--prompt-len", "64", "--gen", "8"]
+GEMM_LARGE = (2048, 4096, 8192)
+PROFILE_KERNELS = {"flash_attention": ("flash_attention",),
+                   "decode_attention": ("decode_attention",),
+                   "mamba_scan": ("mamba_scan",), "wkv6": ("wkv6",),
+                   "moe_dispatch_combine": ("moe_scatter", "moe_gather")}
+
+
+def _phase_record(name: str) -> dict | None:
+    return next((p for p in record["phases"] if p.get("phase") == name),
+                None)
+
+
+def phase_profile(torch, device):
+    """The device profile and the dispatcher on the card.
+
+    1. ``launch.profile --smoke`` (the reference's ladders): every ``cuda``
+       entry of the sweep must launch its kernel, and the JSON must load
+       back equal.  Then the command at its default ladders (matmuls to
+       2048, streams from 64 MiB, past the L2), the profile that
+       calibrates; beside it the float32 and bfloat16 GEMM rates over
+       ``GEMM_LARGE``.
+    2. llama3.2-1b's train step (8 x 256, f32) priced on one H100 by the
+       cost model calibrated with that profile, beside the analytic price
+       and the step the plan phase measured; its train plan searched on
+       the plan phase's 2 x 4 node mesh under the profile (the plan's
+       meta must carry the fingerprint).
+    3. The reference phase's small llama (d 256, hd 64) in mode (a) with
+       ``ServeConfig(kernel_backend="ref")`` and then by default: the
+       tokens equal, no launch under ``ref``, and the default run's
+       launches those of the reference phase's run of the same requests.
+    4. The serve command twice into one ``--autotune-cache-dir``, the
+       in-process cache dropped before each (a restart): the first tunes,
+       the second re-tunes nothing."""
+    import dataclasses
+    import shutil
+    from repro_torch import configs
+    from repro_torch.core import (CostModel, LayerConfig, h100_mesh_spec,
+                                  uniform_strategy)
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.launch import profile as profile_cmd
+    from repro_torch.models import lm
+    from repro_torch.models.graph_export import export_graph, phase_shape
+    from repro_torch.plans import build_parallel_plan
+    from repro_torch.profiling import DeviceProfile
+    from repro_torch.profiling.microbench import measure_matmul_flops
+    counts = {}
+
+    # 1. the sweep through the dispatcher, at the smoke ladders
+    smoke_path = OUT / "profile-smoke.json"
+    ops.reset_launch_counts()
+    smoke = profile_cmd.main(["--smoke", "--out", str(smoke_path)])
+    launched = ops.launch_counts()
+    round_trip = DeviceProfile.load(smoke_path) == smoke
+    missing = [op for op, names in PROFILE_KERNELS.items()
+               if (op, "cuda", "small") not in smoke.kernel_times
+               or any(launched.get(n, 0) <= 0 for n in names)]
+    full_path = OUT / "profile-h100.json"
+    full = profile_cmd.main(["--out", str(full_path), "--skip-collectives"])
+    # past the default ladder: whether 2048 reached the f32 rate, and the
+    # bf16 rate, whose 2048 rung (17 us on the tensor cores) the host's
+    # launch would bound
+    f32_large = measure_matmul_flops(GEMM_LARGE, device=device)
+    bf16 = measure_matmul_flops(GEMM_LARGE, dtype=torch.bfloat16,
+                                device=device)
+    card = card_line()
+    print(f"profile: {card}: GEMM float32 {full.measured_flops / 1e12:.2f} "
+          f"TFLOP/s (smoke ladder {smoke.measured_flops / 1e12:.2f}, to "
+          f"{GEMM_LARGE[-1]} {f32_large / 1e12:.2f}), "
+          f"bfloat16 {bf16 / 1e12:.2f} TFLOP/s, HBM "
+          f"{full.measured_hbm_bw / 1e12:.3f} TB/s (smoke ladder "
+          f"{smoke.measured_hbm_bw / 1e12:.3f})", flush=True)
+    emit({"phase": "profile", "card": card,
+          "gemm_f32_flops": full.measured_flops,
+          "gemm_f32_flops_large": f32_large, "gemm_bf16_flops": bf16,
+          "gemm_large_sizes": list(GEMM_LARGE),
+          "hbm_bytes_s": full.measured_hbm_bw,
+          "smoke_gemm_f32_flops": smoke.measured_flops,
+          "smoke_hbm_bytes_s": smoke.measured_hbm_bw,
+          "matmul_sizes": full.meta["matmul_sizes"],
+          "stream_bytes": full.meta["stream_bytes"],
+          "allow_tf32": full.meta["allow_tf32"],
+          "kernel_ms": {"/".join(k): t * 1e3
+                        for k, t in sorted(full.kernel_times.items())},
+          "kernel_factors": {"/".join(k): f for k, f in
+                             sorted(full.kernel_factors().items())},
+          "smoke_kernel_ms": {"/".join(k): t * 1e3 for k, t in
+                              sorted(smoke.kernel_times.items())},
+          "smoke_launches": launched, "round_trip": round_trip,
+          "fingerprint": full.fingerprint()})
+    if missing:
+        fail(f"profile: the sweep did not launch the kernels of {missing} "
+             f"({launched})")
+    if not round_trip:
+        fail("profile: the smoke profile did not load back equal")
+
+    # 2. the calibrated price of llama3.2-1b's f32 train step
+    arch = configs.get("llama3.2-1b")
+    g = export_graph(arch, phase_shape("train", **PLAN_SHAPES["train"]))
+    one = h100_mesh_spec(1, 1, 1)
+    uni = uniform_strategy(g, lambda n: LayerConfig.make(batch=("data",)))
+    analytic = CostModel(one, phase="train").total_time(g, uni)
+    priced = CostModel.from_profile(full, one, phase="train").total_time(
+        g, uni)
+    measured = (_phase_record("plan-price") or {}).get("measured_step_ms")
+    plan = build_parallel_plan(
+        arch, h100_mesh_spec(1, 2, 4), phases=("train",),
+        train_seq=PLAN_SHAPES["train"]["seq_len"],
+        train_batch=PLAN_SHAPES["train"]["batch"], profile=full)
+    node_cost = plan.meta["phases"]["train"]["cost_s"]
+    print(f"cost model: llama3.2-1b uniform train step (8 x 256) on one "
+          f"H100 {priced * 1e3:.3f} ms calibrated by the profile (analytic "
+          f"{analytic * 1e3:.3f} ms); measured f32 step "
+          f"{measured if measured is None else round(measured, 1)} ms"
+          + ("" if measured is None else
+             f", measured / calibrated {measured / (priced * 1e3):.3f}"),
+          flush=True)
+    emit({"phase": "profile-price", "calibrated_ms": priced * 1e3,
+          "analytic_ms": analytic * 1e3, "measured_step_ms": measured,
+          "measured_over_calibrated": (None if measured is None
+                                       else measured / (priced * 1e3)),
+          "measured_over_analytic": (None if measured is None
+                                     else measured / (analytic * 1e3)),
+          "node_plan_cost_ms": node_cost * 1e3,
+          "node_plan_fingerprint_ok": plan.meta.get("device_profile")
+          == full.fingerprint()})
+    if plan.meta.get("device_profile") != full.fingerprint():
+        fail("profile-price: the searched plan does not carry the profile")
+    if measured is None:
+        fail("profile-price: the plan phase measured no train step")
+
+    # 3. the small llama served under the plain backend, then by default
+    small = dataclasses.replace(configs.get("llama3.2-1b"), n_layers=2,
+                                d_model=256, n_heads=4, n_kv_heads=2,
+                                d_ff=512, vocab=512, head_dim=64)
+    params = lm.init_lm(small, torch.float32,
+                        generator=torch.Generator().manual_seed(SEED),
+                        device="cpu")
+    params = lm.tree_map(lambda t: t.to(device), params)
+    reqs = make_requests(small.vocab, n=6, gen=8)
+    modes = {"ref": {"kernel_backend": "ref"}, "a": {}}
+    runs = {}
+    for mode in modes:
+        res, eng, toks = serve_once(torch, params, small, reqs, mode=mode,
+                                    dtype=torch.float32, device=device,
+                                    max_batch=4, max_len=1024, modes=modes)
+        runs[mode] = (res, toks)
+        del eng
+    usual = (_phase_record("reference-a") or {}).get("launches_card")
+    (r_ref, t_ref), (r_def, t_def) = runs["ref"], runs["a"]
+    counts["profile-serve-default"] = r_def["launches"]
+    emit({"phase": "profile-serve", "tokens_equal": t_ref == t_def,
+          "tokens": sum(len(t) for t in t_def.values()),
+          "launches_ref": r_ref["launches"],
+          "launches_default": r_def["launches"],
+          "launches_reference_phase": usual,
+          "tok_s_ref": r_ref["tok_s"], "tok_s_default": r_def["tok_s"]})
+    if t_ref != t_def:
+        fail(f"profile-serve: tokens differ under ref: {t_ref} vs {t_def}")
+    if any(r_ref["launches"].values()):
+        fail(f"profile-serve: kernels launched under ref: "
+             f"{r_ref['launches']}")
+    if r_def["launches"].get("paged_decode_attention", 0) <= 0 or (
+            usual is not None and r_def["launches"] != usual):
+        fail(f"profile-serve: default launches {r_def['launches']}, the "
+             f"reference phase's {usual}")
+    del params
+
+    # 4. one autotune cache across a restart
+    tune_dir = OUT / "autotune-smoke"
+    shutil.rmtree(tune_dir, ignore_errors=True)
+    tune = []
+    for _ in range(2):
+        dispatch.clear_autotune_cache()
+        res, toks, _ = _serve(torch, PROFILE_SERVE + [
+            "--autotune-cache-dir", str(tune_dir)])
+        tune.append((dispatch.autotune_cache_stats(), toks, res))
+    dispatch.clear_autotune_cache()
+    files = sorted(tune_dir.glob("*.json"))
+    entries = json.loads(files[0].read_text()) if files else {}
+    (s1, k1, r1), (s2, k2, r2) = tune
+    counts["profile-autotune-1"] = r1["launches"]
+    counts["profile-autotune-2"] = r2["launches"]
+    emit({"phase": "profile-autotune", "first": s1, "second": s2,
+          "files": [f.name for f in files], "entries": entries,
+          "tokens_equal": k1 == k2,
+          "launches_equal": r1["launches"] == r2["launches"]})
+    if not (s1.get("tuned", 0) > 0 and s1.get("disk_writes", 0) > 0):
+        fail(f"profile-autotune: the first run tuned nothing: {s1}")
+    if s2.get("tuned", 0) != 0 or s2.get("disk_hits", 0) <= 0:
+        fail(f"profile-autotune: the second run re-tuned: {s2}")
+    if k1 != k2 or r1["launches"] != r2["launches"]:
+        fail("profile-autotune: the two runs differ")
+    return counts
+
+
 # the realize phase: the small models' train runs (batch x seq, steps), the
 # published llama3.2-1b's, and the relative difference a realized loss may
 # show (a one-device mesh redistributes nothing, so equal is expected)
@@ -3015,6 +3230,7 @@ def main() -> int:
         ("serve-internvl2", lambda: phase_serve_internvl2(torch, device)),
         ("train", lambda: phase_train(torch, device)),
         ("plan", lambda: phase_plan(torch, device)),
+        ("profile", lambda: phase_profile(torch, device)),
         ("realize", lambda: phase_realize(torch, device)),
     ]
     counts, seconds = {}, {}
@@ -3034,7 +3250,8 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
         if name in ("serve", "serve-olmoe", "serve-jamba", "serve-rwkv6",
-                    "serve-seamless", "serve-internvl2", "train", "plan"):
+                    "serve-seamless", "serve-internvl2", "train", "plan",
+                    "profile"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)

@@ -128,6 +128,13 @@ def _moe_pallas_factor(node: LayerNode) -> float:
     return 0.9
 
 
+# the port's hand-written CUDA kernels (dispatch backend "cuda", the
+# reference's "pallas": ``kernels.dispatch.REFERENCE_NAMES``) price as the
+# reference's fused kernels until a device profile measures them
+for _op in ("mamba_scan", "moe_dispatch_combine"):
+    _KERNEL_COST_HOOKS[(_op, "cuda")] = _KERNEL_COST_HOOKS[(_op, "pallas")]
+
+
 class CostModel:
     def __init__(self, mesh: MeshSpec, training: bool = True,
                  kernel_backends: dict[str, str] | None = None,

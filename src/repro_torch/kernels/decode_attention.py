@@ -11,8 +11,9 @@ ranges fill the card whatever the slots' lengths; a slot that spans
 several ranges is combined by the last of its CTAs.  One call of the
 wrapper is one launch.  Its plain version is
 :func:`repro_torch.kernels.ref.decode_attention_ref`;
-:mod:`repro_torch.kernels.ops` picks between the two by the tensor's
-device.
+:mod:`repro_torch.kernels.ops` picks between the two through the
+dispatcher, which takes the range per CTA from its autotune cache
+(:func:`chunk_candidates`).
 """
 
 from __future__ import annotations
@@ -63,6 +64,19 @@ def split_plan(B: int, KH: int, T: int) -> tuple[int, int]:
     return chunk, -(-T // chunk)
 
 
+def chunk_candidates(B: int, KH: int, T: int) -> list[tuple[int]]:
+    """The tile choices the launcher takes, for the autotune cache
+    (``dispatch.tuned_blocks``): tokens per CTA, whole multiples of
+    ``RANGE``.  :func:`split_plan`'s choice (the heuristic) first, then
+    1, 2, 4 and 8 ranges where they differ from it and cover no more than
+    T rounded up to a whole range."""
+    first, _ = split_plan(B, KH, T)
+    top = max(first, -(-T // RANGE) * RANGE)
+    rest = [c for c in (RANGE, 2 * RANGE, 4 * RANGE, 8 * RANGE)
+            if c != first and c <= top]
+    return [(c,) for c in [first] + rest]
+
+
 def supports(q_shape, kv_shape) -> bool:
     """The shapes the kernel takes: q (B, KH, G, D), k/v (B, KH, T, D) with
     head dim 64 or 128, G * D <= 2048 and T >= 1."""
@@ -81,9 +95,13 @@ def workspace(device, stream: int, n_part: int, n_tickets: int):
     return part, tickets
 
 
-def decode_attention_cuda(q, k, v, kv_len):
+def decode_attention_cuda(q, k, v, kv_len, *, chunk: int | None = None,
+                          count: bool = True):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
-    not take.  ``kv_len`` is a (B,) int32 CUDA tensor."""
+    not take.  ``kv_len`` is a (B,) int32 CUDA tensor.  ``chunk`` (tokens
+    per CTA, a whole number of the kernel's 32-token tiles) defaults to
+    :func:`split_plan`'s; ``count=False`` is the autotune's timing launch,
+    which counts no launch."""
     B, KH, G, D = q.shape
     T = k.shape[2]
     tensors = (q, k, v, kv_len)
@@ -102,7 +120,11 @@ def decode_attention_cuda(q, k, v, kv_len):
              f"head dim {D} (64 or 128), group {G} (G*D <= 2048), T {T} > 0")
     _require(tuple(kv_len.shape) == (B,) and kv_len.dtype == torch.int32,
              "kv_len must be (B,) int32")
-    chunk, splits = split_plan(B, KH, T)
+    if chunk is None:
+        chunk = split_plan(B, KH, T)[0]
+    _require(chunk > 0 and chunk % _TILE == 0,
+             f"chunk {chunk} must be a positive multiple of {_TILE}")
+    splits = -(-T // chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     stride = G * D + -(-2 * G // 4) * 4      # per range: acc, m, l
@@ -113,5 +135,6 @@ def decode_attention_cuda(q, k, v, kv_len):
                  G, D, T, *k.stride()[:3], *v.stride()[:3], chunk, splits,
                  _DTYPE[q.dtype], stream)
     build.check(err, "decode_attention")
-    launches["decode_attention"] += 1
+    if count:
+        launches["decode_attention"] += 1
     return out

@@ -5,13 +5,15 @@ The kernel (``csrc/paged_decode_attention.cu``) takes single-token q
 ``(B, KH, G, D)`` over a block pool ``(NB, block_size, KH, D)`` in
 float32 or bfloat16, or int8 with ``(NB, block_size, KH)`` float32
 scales, head dim 64 or 128, any block size.  It splits each row's
-``pages * block_size`` tokens into the ranges of
-:func:`~repro_torch.kernels.decode_attention.split_plan`, one CTA each,
+``pages * block_size`` tokens into ranges (by default
+:func:`~repro_torch.kernels.decode_attention.split_plan`'s; the
+dispatcher takes them from its autotune cache), one CTA each,
 and combines a row's ranges in the same launch through the workspace it
 shares with the dense decode kernel.  One call of the wrapper is one
 launch.  Its plain version is
 :func:`repro_torch.kernels.ref.paged_decode_attention_ref`;
-:mod:`repro_torch.kernels.ops` picks between the two.
+:mod:`repro_torch.kernels.ops` picks between the two through the
+dispatcher.
 """
 
 from __future__ import annotations
@@ -55,9 +57,14 @@ def supports(q_shape, pool_shape, tables_shape) -> bool:
 
 
 def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
-                                k_scale=None, v_scale=None):
+                                k_scale=None, v_scale=None,
+                                chunk: int | None = None,
+                                count: bool = True):
     """Launch the CUDA kernel on CUDA tensors; raises on anything it does
-    not take.  ``kv_len`` is a (B,) int32 CUDA tensor."""
+    not take.  ``kv_len`` is a (B,) int32 CUDA tensor.  ``chunk`` and
+    ``count`` as for the dense kernel
+    (:func:`~repro_torch.kernels.decode_attention.decode_attention_cuda`),
+    over the table's ``pages * block_size`` tokens."""
     quant = k_scale is not None
     B, KH, G, D = q.shape
     NB, bs, KHp, Dp = k_pool.shape
@@ -96,7 +103,11 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
     else:
         _require(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
                  "fp pools must have q's dtype")
-    chunk, splits = split_plan(B, KH, pages * bs)
+    if chunk is None:
+        chunk = split_plan(B, KH, pages * bs)[0]
+    _require(chunk > 0 and chunk % 32 == 0,
+             f"chunk {chunk} must be a positive multiple of 32")
+    splits = -(-(pages * bs) // chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     stride = G * D + -(-2 * G // 4) * 4      # per range: acc, m, l
@@ -110,6 +121,7 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
                  chunk, splits, _DTYPE[q.dtype], _DTYPE[k_pool.dtype],
                  stream)
     build.check(err, "paged_decode_attention")
-    launches["paged_decode_attention_int8" if quant
-             else "paged_decode_attention"] += 1
+    if count:
+        launches["paged_decode_attention_int8" if quant
+                 else "paged_decode_attention"] += 1
     return out

@@ -2,7 +2,8 @@
 ``repro.kernels.ref`` (``attention_ref`` .. ``paged_decode_attention_ref``,
 ``wkv6_ref``, ``wkv6_scan``), of the MoE functions of
 ``repro.kernels.moe_kernels`` (``moe_positions`` .. ``moe_scatter``) and
-of ``repro.kernels.mamba_scan.mamba_scan_ref``.
+of ``repro.kernels.mamba_scan``'s ``mamba_scan_ref`` and
+``mamba_scan_xla`` (:func:`mamba_scan_chunked`).
 
 They are what a CPU tensor runs, what ``chip_smoke.py`` holds each CUDA
 kernel against on the card, and what the kernels' backward passes
@@ -16,6 +17,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.scan import remat_time_scan
 from repro_torch.core.sharding import run_local
@@ -214,6 +216,58 @@ def mamba_scan_ref(dt, Bm, Cm, x, A, D, *, chunk: int = 64,
                             (tm(dt), tm(Bm), tm(Cm), tm(x)), chunk=chunk)
     y = y.transpose(0, 1).to(x.dtype)                         # (B, S, di)
     return (y, hN) if return_state else y
+
+
+def _assoc_scan(a, b):
+    """Inclusive scan along dim 1 of the pairs (a, b) under
+    ``(a, b) . (a', b') = (a a', b a' + b')`` (earlier pair on the left),
+    by doubling: log2 of the length steps."""
+    d, n = 1, a.shape[1]
+    while d < n:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], 1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], 1)
+        d *= 2
+    return a, b
+
+
+def _mamba_chunk(A, Dskip):
+    def body(h, dt, Bm, Cm, x):
+        dt, Bm, Cm, x = (t.float() for t in (dt, Bm, Cm, x))   # (B, c, ...)
+        a = torch.exp(dt[..., None] * A)                       # (B, c, di, N)
+        b = (dt * x)[..., None] * Bm[:, :, None, :]            # (B, c, di, N)
+        aa, bb = _assoc_scan(a, b)
+        h_all = aa * h[:, None] + bb
+        y = torch.einsum("bcdn,bcn->bcd", h_all, Cm) + Dskip * x
+        return h_all[:, -1], y
+    return body
+
+
+def mamba_scan_chunked(dt, Bm, Cm, x, A, D, *, chunk: int = 64,
+                       initial_state=None, return_state: bool = False):
+    """The selective scan of :func:`mamba_scan_ref` as the reference's
+    ``mamba_scan_xla`` computes it: a chunked associative scan, parallel
+    within each chunk of ``chunk`` steps (log2 of it doubling steps over
+    (B, chunk, di, N) terms) and carried across chunks, each chunk
+    recomputed in the backward pass (``torch.utils.checkpoint``); an
+    uneven tail runs as one short extra chunk.  Returns y (B, S, di) in
+    x's dtype, plus the final state when ``return_state``."""
+    B, S, di = x.shape
+    N = Bm.shape[-1]
+    h = (initial_state.float() if initial_state is not None
+         else torch.zeros(B, di, N, dtype=torch.float32, device=x.device))
+    body = _mamba_chunk(A.float(), D.float())
+    chunk = min(chunk, S)
+    ys = []
+    for c0 in range(0, S, chunk):
+        part = tuple(t[:, c0:c0 + chunk] for t in (dt, Bm, Cm, x))
+        if torch.is_grad_enabled():
+            h, y = checkpoint(body, h, *part, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, y = body(h, *part)
+        ys.append(y)
+    y = torch.cat(ys, 1).to(x.dtype)
+    return (y, h) if return_state else y
 
 
 # --------------------------------------------------------------------------- #

@@ -43,7 +43,10 @@ The plan flags are the reference's (:func:`resolve_serve_plan`):
 plan (prefill priced as a batch-1 prompt, decode as the engine's mixed
 step over the slot pool, at the paged pool's allocated depth, with
 ``--shared-prefix-tokens`` of it shared across the pool), ``--plan``
-loads one from JSON instead (arch-checked), ``--save-plan`` writes it.
+loads one from JSON instead (arch-checked), ``--save-plan`` writes it,
+``--device-profile`` calibrates the search with a measured device
+profile.  ``--kernel-backend`` and ``--autotune-cache-dir`` are the train
+command's (:func:`repro_torch.launch.train.add_kernel_flags`).
 One GPU has no mesh, so a built plan degrades to uniform and a loaded
 one places nothing (both logged); the engine and the lockstep loop take
 the plan all the same, and a plan whose decode phase is
@@ -76,7 +79,9 @@ from repro_torch.core.sharding import (current_mesh, is_dtensor, use_mesh,
                                        whole)
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import init_distributed, serve_mesh
-from repro_torch.launch.train import reduced_arch, require_kernel_shapes
+from repro_torch.kernels.dispatch import autotune_cache_at, force_backend
+from repro_torch.launch.train import (add_kernel_flags, reduced_arch,
+                                      require_kernel_shapes)
 from repro_torch.data import make_dataset
 from repro_torch.models import init_params, model_module
 from repro_torch.models.arch import ShapeSpec
@@ -147,6 +152,7 @@ def parser() -> argparse.ArgumentParser:
                          "keeps the published count)")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
+    add_kernel_flags(ap)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--seed", type=int, default=0)
     return ap
@@ -159,7 +165,8 @@ def resolve_serve_plan(arch, mesh_spec, *, plan_path: str = "",
                        prefill_chunk_tokens: int = 0,
                        shared_prefix_tokens: int = 0,
                        kv_quant: str | None = None,
-                       save_plan: str = "") -> ParallelPlan:
+                       save_plan: str = "",
+                       profile_path: str = "") -> ParallelPlan:
     """Serving preset of :func:`repro_torch.plans.resolve_plan` (the
     reference's ``repro.launch.serve.resolve_serve_plan``): the phases a
     serving process executes are prefill + decode.
@@ -174,7 +181,9 @@ def resolve_serve_plan(arch, mesh_spec, *, plan_path: str = "",
     chunked prefill (``prefill_chunk_tokens > 0``) decode is priced as the
     engine's mixed step: ``ceil((max_batch - 1 + chunk) / max_batch)``
     query tokens a slot.  ``kv_quant="int8"`` prices the cache read at
-    the quantized pool's width and is recorded in the plan's meta.  A
+    the quantized pool's width and is recorded in the plan's meta.
+    ``profile_path`` (``--device-profile``) calibrates the search with a
+    measured device profile.  A
     plan whose decode phase is pipeline-staged is refused; a staged
     prefill phase is noted (serving runs it unstaged).
     """
@@ -193,7 +202,8 @@ def resolve_serve_plan(arch, mesh_spec, *, plan_path: str = "",
         plan_path=plan_path, strategy=strategy, save_plan=save_plan,
         prompt_len=prompt_len, max_batch=max_batch, max_len=max_len,
         decode_kv_tokens=kv_tokens, decode_q_tokens=q_tokens,
-        decode_kv_quant=kv_quant if kv_block_size else None)
+        decode_kv_quant=kv_quant if kv_block_size else None,
+        profile_path=profile_path)
     dec = plan.stage_for("decode")
     if dec.num_stages > 1:
         raise ValueError(
@@ -217,7 +227,7 @@ def _sync(device) -> None:
 
 
 def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
-             plan=None) -> dict:
+             plan=None, kernel_backend: str | None = None) -> dict:
     """The static lockstep loop over dense rows: one prefill of ``batch``
     (an encoder-decoder's frames and tokens, or a VLM's frontend and
     text), then ``gen - 1`` greedy decode steps at one scalar position
@@ -226,7 +236,8 @@ def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
     logits on the device, and the prefill's and the steps' seconds.
     ``plan`` is checked against ``arch``; under an active mesh the loop
     realizes it (params by the decode phase's specs, each call under its
-    phase's configs, the logits gathered), and places nothing without."""
+    phase's configs, the logits gathered), and places nothing without.
+    ``kernel_backend`` forces a kernel dispatch backend for the loop."""
     pre, dec = (as_model_plan(plan, arch, p) for p in ("prefill", "decode"))
     mesh = current_mesh()
     if mesh is not None and not is_dtensor(params["embed"]["table"]):
@@ -245,7 +256,7 @@ def lockstep(params, arch, batch: dict, gen: int, *, feed=None,
     def next_token(logits):
         return logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
-    with torch.no_grad():
+    with torch.no_grad(), force_backend(kernel_backend):
         cache = mod.init_cache(arch, B, pos + gen, dtype, device=device, **kw)
         _sync(device)
         t0 = time.perf_counter()
@@ -290,10 +301,12 @@ def serve_encdec(args, arch, device, dtype, plan=None) -> dict:
     decode with a scalar position.  A prefill and one step run first on a
     throwaway cache, before anything is timed."""
     params, batch = encdec_inputs(args, arch, device, dtype)
+    kb = args.kernel_backend or None
     t0 = time.perf_counter()
-    lockstep(params, arch, batch, 2, plan=plan)
+    lockstep(params, arch, batch, 2, plan=plan, kernel_backend=kb)
     t_warm = time.perf_counter() - t0
-    out = lockstep(params, arch, batch, args.gen, plan=plan)
+    out = lockstep(params, arch, batch, args.gen, plan=plan,
+                   kernel_backend=kb)
     t_prefill, t_decode = out["prefill_s"], out["decode_s"]
     pos = batch["tokens"].shape[1]
     gen = out["tokens"]
@@ -313,11 +326,16 @@ def serve_encdec(args, arch, device, dtype, plan=None) -> dict:
 
 def main(argv=None) -> dict:
     args = parser().parse_args(argv)
+    with autotune_cache_at(args.autotune_cache_dir):
+        return _main(args)
+
+
+def _main(args) -> dict:
     device = resolve_device(args.device)
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
-    require_kernel_shapes(arch, device)
+    require_kernel_shapes(arch, device, args.kernel_backend or None)
     rank, world = init_distributed(device)
     mesh = mesh_spec = None
     if world > 1:
@@ -347,7 +365,8 @@ def _serve(args, arch, device, dtype, mesh_spec, rank: int) -> dict:
         prefill_chunk_tokens=min(chunk, max_len),
         shared_prefix_tokens=args.shared_prefix_tokens,
         kv_quant=None if args.kv_quant == "none" else args.kv_quant,
-        save_plan=args.save_plan if rank == 0 else "")
+        save_plan=args.save_plan if rank == 0 else "",
+        profile_path=args.device_profile)
     if arch.enc_layers:
         return serve_encdec(args, arch, device, dtype, plan)
     n_requests = args.requests or 2 * args.batch
@@ -363,7 +382,8 @@ def _serve(args, arch, device, dtype, mesh_spec, rank: int) -> dict:
         prefill_chunk_tokens=chunk, dtype=dtype,
         prefix_cache=not args.no_prefix_cache,
         prefix_evict=args.prefix_evict,
-        kv_quant=None if args.kv_quant == "none" else args.kv_quant),
+        kv_quant=None if args.kv_quant == "none" else args.kv_quant,
+        kernel_backend=args.kernel_backend or None),
         plan=plan)
     t_warm = engine.warmup(sorted({len(r.prompt) for r in requests}))
     t0 = time.perf_counter()

@@ -39,10 +39,16 @@ group, builds the reference's train mesh (every rank on ``data``,
 realizes the train phase: params by ``param_pspecs``, the AdamW moments
 ZeRO-1 (``zero1_state_pspecs``), each batch by ``batch_pspecs``.  Only
 rank 0 prints, saves the plan and writes checkpoints (of the gathered
-tensors; a restore re-places them).  The flags that need
-the profiler or the kernel dispatcher (``--device-profile``,
-``--kernel-backend``, ``--autotune-cache-dir``) raise, naming the slice
-that brings them.
+tensors; a restore re-places them).
+
+``--kernel-backend {cuda,xla,ref}`` forces a kernel dispatch backend for
+every op of the step (a preference, ``kernels/dispatch.py``; with a plain
+one nothing launches, so no width is refused for the kernels' sake),
+``--autotune-cache-dir`` points the launchers' tile cache elsewhere for
+the run (``REPRO_AUTOTUNE_CACHE_DIR``), and ``--device-profile`` loads a
+measured :class:`~repro_torch.profiling.DeviceProfile`
+(``python -m repro_torch.launch.profile``) that calibrates the searched
+plan's cost model; the plan's meta then carries its fingerprint.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from repro_torch.core.sharding import use_mesh
 from repro_torch.data import make_dataset
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.dispatch import BACKENDS, PLAIN, autotune_cache_at
 from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
 from repro_torch.launch.mesh import init_distributed, train_mesh
 from repro_torch.models import init_params
@@ -130,11 +137,15 @@ def kernel_shape_faults(arch) -> list[str]:
     return faults
 
 
-def require_kernel_shapes(arch, device: torch.device) -> None:
+def require_kernel_shapes(arch, device: torch.device,
+                          kernel_backend: str | None = None) -> None:
     """On the card every attention, WKV6 and scan op launches its kernel,
     which raises on a shape it does not take: refuse such an ``arch``
-    before building it, naming the width that works."""
-    faults = kernel_shape_faults(arch) if device.type == "cuda" else []
+    before building it, naming the width that works.  A plain
+    ``kernel_backend`` (``xla``, ``ref``) launches nothing, and takes any
+    width."""
+    kernels = device.type == "cuda" and kernel_backend not in PLAIN
+    faults = kernel_shape_faults(arch) if kernels else []
     if faults:
         raise ValueError(
             f"{arch.name} at d_model {arch.d_model}: the CUDA kernels do "
@@ -178,42 +189,44 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--metrics-out", default="")
-    ap.add_argument("--kernel-backend", default="",
-                    help="force a kernel backend (dispatcher slice)")
-    ap.add_argument("--autotune-cache-dir", default="",
-                    help="block-size autotune cache (dispatcher slice)")
-    ap.add_argument("--device-profile", default="",
-                    help="measured DeviceProfile JSON (profiling slice)")
+    add_kernel_flags(ap)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return ap
 
 
-def _refuse_later_flags(args) -> None:
-    later = [
-        (args.device_profile, "--device-profile",
-         "the H100 profiling slice"),
-        (args.kernel_backend or args.autotune_cache_dir,
-         "--kernel-backend/--autotune-cache-dir",
-         "the dispatcher-overrides slice"),
-    ]
-    for given, flag, slice_ in later:
-        if given:
-            raise NotImplementedError(
-                f"{flag} is not ported yet: it arrives with {slice_} "
-                f"(ROADMAP.md)")
+def add_kernel_flags(ap: argparse.ArgumentParser) -> None:
+    """The dispatcher's and the profiler's flags, shared by both
+    commands (the reference's)."""
+    ap.add_argument("--kernel-backend", default="",
+                    choices=["", *BACKENDS],
+                    help="force a kernel dispatch backend for every op "
+                         "(cuda: the hand-written kernels; xla, ref: the "
+                         "plain PyTorch versions); default auto")
+    ap.add_argument("--autotune-cache-dir", default="",
+                    help="directory of the launchers' persistent tile "
+                         "autotune cache (default build/autotune; same as "
+                         "REPRO_AUTOTUNE_CACHE_DIR)")
+    ap.add_argument("--device-profile", default="",
+                    help="measured DeviceProfile JSON (launch.profile); "
+                         "calibrates the plan search's cost model to this "
+                         "card instead of the analytic constants")
 
 
 def main(argv=None) -> list[dict]:
     """Train; returns the logged metrics (one dict per logged step)."""
     args = parser().parse_args(argv)
-    _refuse_later_flags(args)
+    with autotune_cache_at(args.autotune_cache_dir):
+        return _train(args)
+
+
+def _train(args) -> list[dict]:
     device = resolve_device(args.device)
     rank, world = init_distributed(device)
     log = print if rank == 0 else (lambda *a, **k: None)
 
     arch = reduced_arch(configs.get(args.arch), args.width, args.depth,
                         args.vocab, args.experts)
-    require_kernel_shapes(arch, device)
+    require_kernel_shapes(arch, device, args.kernel_backend or None)
     shape = ShapeSpec("custom", args.seq, args.batch, "train")
     name = {"search": "searched", "none": "uniform"}.get(
         args.strategy, args.strategy)
@@ -229,13 +242,14 @@ def main(argv=None) -> list[dict]:
         strategy=name, save_plan=args.save_plan if rank == 0 else "",
         train_seq=args.seq, train_batch=args.batch,
         train_stages=args.pipeline_stages,
-        train_microbatches=args.microbatches, log=log)
+        train_microbatches=args.microbatches,
+        profile_path=args.device_profile, log=log)
     staged = pplan.stage_for("train").num_stages > 1
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20,
                           total_steps=args.steps)
     tcfg = TrainConfig(optimizer=opt_cfg, q_chunk=256, time_chunk=32,
-                       remat=True)
+                       remat=True, kernel_backend=args.kernel_backend or None)
     step_fn = make_train_step(
         arch, pplan if staged else pplan.plan_for("train"), tcfg)
     ds = make_dataset(arch, shape)

@@ -15,8 +15,7 @@ requested phase's graph and packages the results with provenance into a
 :class:`~repro_torch.plans.parallel_plan.ParallelPlan`.
 
 The plan's meta records ``torch.__version__`` where the reference's
-records JAX's, and a measured device profile (``profile_path``) is not
-ported yet: it arrives with the H100 profiling slice.
+records JAX's.
 """
 
 from __future__ import annotations
@@ -247,16 +246,18 @@ def resolve_plan(arch: ArchConfig, mesh: MeshSpec | None, *,
     the degrade to uniform — the saved file's meta records what was
     actually built, so downstream ``--plan`` runs see the truth.
 
-    ``profile_path`` (the commands' ``--device-profile``) would load a
-    measured device profile to calibrate the searched cost model; the
-    port has no profiler yet, so it raises, naming the slice that brings
-    one.
+    ``profile_path`` (the commands' ``--device-profile``) loads a measured
+    :class:`~repro_torch.profiling.DeviceProfile` and calibrates the
+    searched cost model from it; a loaded ``plan_path`` notes when the
+    plan was searched under a different (or no) profile than the one
+    given.
     """
     profile = None
     if profile_path:
-        raise NotImplementedError(
-            f"a device profile ({profile_path}) is not ported yet: it "
-            f"arrives with the H100 profiling slice (ROADMAP.md A8)")
+        from repro_torch.profiling import load_profile
+        profile = load_profile(profile_path)
+        log(f"plan: device profile {profile_path} "
+            f"[{profile.device_kind}] calibrates the cost model")
     if plan_path:
         plan = ParallelPlan.load(plan_path, arch=arch)
         log(f"plan: loaded [{plan.strategy_name}] from {plan_path}")

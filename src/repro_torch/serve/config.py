@@ -1,8 +1,7 @@
 """``ServeConfig``: the serve engine's knobs in one validated dataclass,
 the counterpart of ``repro.serve.config`` with a torch dtype and without
-the reference's kernel-backend override (the port picks each kernel by
-the tensor's device) and prefill query-chunk size (the flash kernel's
-tiles are fixed)."""
+the reference's prefill query-chunk size (the flash kernel's tiles are
+fixed)."""
 
 from __future__ import annotations
 
@@ -37,6 +36,9 @@ class ServeConfig:
       their users retire, ``"none"`` shares only between live requests.
     * ``kv_quant`` — ``"int8"`` stores pool blocks as int8 with per-(slot,
       head) f32 scales (quantize on write, dequantize on read).
+    * ``kernel_backend`` — force a kernel dispatch backend (``"cuda"``,
+      ``"xla"``, ``"ref"``) around every prefill and step, a preference
+      (:mod:`repro_torch.kernels.dispatch`); None auto-selects.
     """
 
     max_batch: int
@@ -49,6 +51,7 @@ class ServeConfig:
     prefix_cache: bool = True
     prefix_evict: str = "lru"
     kv_quant: str | None = None
+    kernel_backend: str | None = None
 
     KV_QUANT = (None, "none", "int8")
 

@@ -191,7 +191,8 @@ class ServeEngine:
         # prefill phase, the mixed step under its decode phase; on one
         # device neither places anything
         self.plan = plan
-        self._prefill, self._step = make_serve_fns(arch, plan)
+        self._prefill, self._step = make_serve_fns(
+            arch, plan, kernel_backend=config.kernel_backend)
         if self.paged:
             pages = -(-self.max_len // self.block_size)
             usable = (int(config.kv_pool_blocks) if config.kv_pool_blocks

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.sharding import whole
+from repro_torch.kernels.dispatch import force_backend
 from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
 from repro_torch.models.plan import ModelPlan
@@ -37,8 +38,13 @@ def _row_views(tree, g: int, paged: bool, path=()):
 
 
 def make_serve_fns(arch: ArchConfig,
-                   plan: ParallelPlan | ModelPlan | None = None):
+                   plan: ParallelPlan | ModelPlan | None = None,
+                   kernel_backend: str | None = None):
     """Build ``(prefill, step)``.
+
+    ``kernel_backend`` forces a kernel dispatch backend around each call
+    (:func:`repro_torch.kernels.dispatch.force_backend`); None
+    auto-selects.
 
     ``plan`` is resolved per phase (``as_model_plan``: a ``ParallelPlan``
     is checked against ``arch``); its configs constrain the activations
@@ -68,7 +74,9 @@ def make_serve_fns(arch: ArchConfig,
     mod = model_module(arch)
 
     def prefill(params, batch, cache):
-        logits, cache = mod.prefill(params, batch, cache, arch, pre_plan)
+        with force_backend(kernel_backend):
+            logits, cache = mod.prefill(params, batch, cache, arch,
+                                        pre_plan)
         return whole(logits), cache
 
     if mod is not lm:
@@ -78,14 +86,17 @@ def make_serve_fns(arch: ArchConfig,
                 raise NotImplementedError(
                     f"{arch.name}: mixed-step serving (q_lens/block_tables) "
                     "is decoder-only for now")
-            logits, cache = mod.decode_step(params, tokens, cache, pos,
-                                            arch, dec_plan)
+            with force_backend(kernel_backend):
+                logits, cache = mod.decode_step(params, tokens, cache, pos,
+                                                arch, dec_plan)
             return whole(logits), cache
         return prefill, decode
 
     def _model_step(params, tokens, cache, pos, q_lens, block_tables):
-        logits, cache = lm.step(params, tokens, cache, pos, arch, dec_plan,
-                                q_lens=q_lens, block_tables=block_tables)
+        with force_backend(kernel_backend):
+            logits, cache = lm.step(params, tokens, cache, pos, arch,
+                                    dec_plan, q_lens=q_lens,
+                                    block_tables=block_tables)
         return whole(logits), cache
 
     def step(params, tokens, cache, pos, q_lens=None, block_tables=None):

@@ -14,7 +14,9 @@ Gradients come from ``torch.autograd.grad`` of the port's ``loss_fn``
 (``lm``'s, or ``encdec``'s for an encoder-decoder).
 On the card the attention and WKV6 kernels run forward and their
 ``autograd.Function``s differentiate the plain versions, as the
-reference's ``with_reference_vjp`` does.
+reference's ``with_reference_vjp`` does.  ``TrainConfig.kernel_backend``
+forces a dispatch backend around the whole step (forward, backward and
+the remat recompute), as the reference's does.
 
 On a realized plan (the caller runs the step under ``core.use_mesh``) the
 parameters, the batch and the moments are DTensors (:func:`realize`; the
@@ -31,6 +33,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.sharding import is_dtensor, whole
+from repro_torch.kernels import dispatch as kernel_dispatch
 from repro_torch.models import lm, model_module
 from repro_torch.models.arch import ArchConfig
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
@@ -54,6 +57,9 @@ class TrainConfig:
     remat_policy: str = "nothing"
     loss_chunk: int = 512
     aux_coef: float = 0.01
+    # force a kernel dispatch backend ("cuda" | "xla" | "ref") for every op
+    # of the step, a preference (kernels.dispatch); None = auto-select
+    kernel_backend: str | None = None
 
 
 def _check_unstaged(plan) -> None:
@@ -121,6 +127,10 @@ def make_train_step(arch: ArchConfig, plan=None,
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch):
+        with kernel_dispatch.force_backend(cfg.kernel_backend):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         m = cfg.microbatches
         if m == 1:
             metrics, grads = value_and_grad(params, batch)

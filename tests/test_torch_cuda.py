@@ -1127,3 +1127,118 @@ def test_cuda_launchers_run_at_their_default_sizes(cuda, tmp_path):
         train.main(["--width", "256", "--depth", "8", "--steps", "2",
                     "--ckpt-every", "0", "--ckpt-dir", str(tmp_path)])
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# --------------------------------------------------------------------------- #
+# the dispatcher on the card (kernels/dispatch.py)
+# --------------------------------------------------------------------------- #
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,KH,G,D,T,lens", [
+    (8, 8, 4, 64, 1024, [1024, 1, 64, 65, 700, 300, 129, 513]),
+    (2, 16, 1, 128, 4096, [4096, 2500]),
+    (4, 8, 8, 128, 545, [545, 31, 32, 300])], ids=["llama", "long", "jamba"])
+def test_cuda_decode_every_tile_candidate_matches_plain(cuda, dt, B, KH, G,
+                                                        D, T, lens):
+    """Each range per CTA the autotune cache may pick, dense and paged
+    (the same tokens through a block table), against the plain version;
+    a timing launch (``count=False``) counts no launch."""
+    from repro_torch.kernels import dispatch
+    q, k, v, kv_len = _decode_case(cuda, dt, B, KH, G, D, T, lens)
+    want = _decode_ref(q, k, v, kv_len).float()
+    bs = 32
+    pages = -(-T // bs)
+    pool_k = torch.zeros(B * pages + 1, bs, KH, D, dtype=dt, device=cuda)
+    pool_v = torch.zeros_like(pool_k)
+    tables = (torch.arange(B * pages, device=cuda, dtype=torch.int32)
+              .reshape(B, pages) + 1)
+    for b in range(B):
+        rows = k[b].transpose(0, 1)                         # (T, KH, D)
+        flat_k = torch.zeros(pages * bs, KH, D, dtype=dt, device=cuda)
+        flat_v = torch.zeros_like(flat_k)
+        flat_k[:T], flat_v[:T] = rows, v[b].transpose(0, 1)
+        pool_k[tables[b].long()] = flat_k.reshape(pages, bs, KH, D)
+        pool_v[tables[b].long()] = flat_v.reshape(pages, bs, KH, D)
+    tol = CUDA_TOL[dt]
+    before = ops.launch_counts()
+    for (chunk,) in decode_attention.chunk_candidates(B, KH, T):
+        got = decode_attention.decode_attention_cuda(
+            q, k, v, kv_len, chunk=chunk, count=False)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    for (chunk,) in decode_attention.chunk_candidates(B, KH, pages * bs):
+        got = paged_decode_attention.paged_decode_attention_cuda(
+            q.contiguous(), pool_k, pool_v, tables, kv_len, chunk=chunk,
+            count=False)
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+    assert ops.launch_counts() == before
+    # the dispatcher's tuned call: one launch, the same result
+    dispatch.clear_autotune_cache()
+    got = ops.decode_attention(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == (
+        before["decode_attention"] + 1)
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_launches_the_kernel_or_raises(cuda):
+    """With no backend named every covered form launches its kernel, and
+    a shape the kernel does not take raises (no fallback); a named plain
+    backend runs on the card and launches nothing; the carried-state
+    WKV6 and the 5-d mixed-step decode run plain."""
+    from repro_torch.kernels import dispatch
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q, k = (torch.randn(1, 4, 16, 64, generator=g, device=cuda)
+            for _ in range(2))
+    ops.reset_launch_counts()
+    want = ref.attention_ref(q, k, k)
+    torch.testing.assert_close(ops.flash_attention(q, k, k), want,
+                               atol=2e-5, rtol=2e-5)
+    assert ops.launch_counts()["flash_attention"] == 1
+    for b in dispatch.PLAIN:
+        torch.testing.assert_close(ops.flash_attention(q, k, k, backend=b),
+                                   want, atol=2e-5, rtol=2e-5)
+        with dispatch.force_backend(b):
+            ops.flash_attention(q, k, k)
+    assert ops.launch_counts()["flash_attention"] == 1
+    q8 = torch.randn(1, 4, 16, 8, device=cuda)
+    with pytest.raises(ValueError, match="head dim 8"):
+        ops.flash_attention(q8, q8, q8)
+    r = torch.rand(1, 2, 5, 64, device=cuda)
+    u = torch.zeros(2, 64, device=cuda)
+    out, state = ops.wkv6(r, r, r, r, u, return_state=True)
+    assert state.shape == (1, 2, 64, 64) and ops.launch_counts()["wkv6"] == 0
+    ops.wkv6(r, r, r, r, u)
+    assert ops.launch_counts()["wkv6"] == 1
+    q5 = torch.randn(1, 2, 2, 3, 64, device=cuda)
+    kv = torch.randn(1, 2, 9, 64, device=cuda)
+    ops.decode_attention(q5, kv, kv, torch.full((1, 3), 9, dtype=torch.int32,
+                                                device=cuda))
+    assert ops.launch_counts()["decode_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_tile_autotune_times_on_the_card(cuda, tmp_path, monkeypatch):
+    """On CUDA tensors the tile is timed over the candidates and the
+    winner persisted; a restart reads it back without re-tuning."""
+    from repro_torch.kernels import dispatch
+    monkeypatch.setenv(dispatch.ENV_CACHE_DIR, str(tmp_path))
+    dispatch.clear_autotune_cache()
+    q, k, v, kv_len = _decode_case(cuda, torch.float32, 8, 8, 4, 64, 1024,
+                                   [1024] * 8)
+    timed = []
+    cands = decode_attention.chunk_candidates(8, 8, 1024)
+    assert len(cands) > 1
+    got = dispatch.tuned_blocks(
+        "op_card", ("k",), cands,
+        bench=lambda c: timed.append(c) or decode_attention
+        .decode_attention_cuda(q, k, v, kv_len, chunk=c, count=False),
+        args=(q, k, v, kv_len))
+    assert got in cands and set(timed) == {c for (c,) in cands}
+    assert dispatch.autotune_cache_stats()["tuned"] == 1
+    dispatch.clear_autotune_cache()
+    assert dispatch.tuned_blocks("op_card", ("k",), cands, bench=None,
+                                 args=(q,)) == got
+    assert dispatch.autotune_cache_stats() == {"disk_hits": 1}
+    dispatch.clear_autotune_cache()

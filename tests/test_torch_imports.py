@@ -50,9 +50,11 @@ MODULES = [
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.mamba_scan", "repro_torch.kernels.mha_chunked",
     "repro_torch.kernels.moe_dispatch",
+    "repro_torch.kernels.dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
-    "repro_torch.launch.mesh", "repro_torch.launch.serve",
+    "repro_torch.launch.mesh", "repro_torch.launch.profile",
+    "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.models.encdec", "repro_torch.models.graph_export",
     "repro_torch.models.layers", "repro_torch.models.lm",
@@ -60,6 +62,8 @@ MODULES = [
     "repro_torch.models.moe", "repro_torch.models.recurrent",
     "repro_torch.optim.adamw", "repro_torch.plans.parallel_plan",
     "repro_torch.plans.search", "repro_torch.plans.shardings",
+    "repro_torch.profiling", "repro_torch.profiling.calibration",
+    "repro_torch.profiling.microbench", "repro_torch.profiling.profile",
     "repro_torch.serve.engine",
     "repro_torch.serve.fns", "repro_torch.train.step",
 ]

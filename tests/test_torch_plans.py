@@ -232,7 +232,18 @@ def test_unknown_chip_is_refused(tmp_path):
         ParallelPlan.load(path, arch=arch)
 
 
-def test_device_profile_names_its_slice():
-    with pytest.raises(NotImplementedError, match="profiling slice"):
-        resolve_plan(TC.reduced("llama3_2_1b"), None,
-                     profile_path="profile.json")
+def test_device_profile_names_its_slice(tmp_path):
+    """``profile_path`` loads a measured profile (the profiling slice has
+    come): a file that is no profile is refused, naming it; a profile is
+    logged as calibrating the cost model."""
+    from repro_torch.profiling import DeviceProfile, ProfileFormatError
+    arch = TC.reduced("llama3_2_1b")
+    with pytest.raises(ProfileFormatError, match="profile.json"):
+        resolve_plan(arch, None, profile_path=str(tmp_path / "profile.json"))
+    path = DeviceProfile(device_kind="TestChip v0").save(
+        tmp_path / "profile.json")
+    logs = []
+    plan = resolve_plan(arch, None, profile_path=str(path), log=logs.append)
+    assert plan.strategy_name == "uniform"
+    assert logs[0] == (f"plan: device profile {path} [TestChip v0] "
+                       f"calibrates the cost model")

@@ -450,17 +450,27 @@ def _staged_plans(tmp_path) -> dict:
                                   ["--plan", "{prefill}"],
                                   ["--plan", "{staged}", "--save-plan",
                                    "{out}"],
-                                  ["--device-profile", "d.json"],
+                                  ["--device-profile", "{profile}"],
                                   ["--kernel-backend", "ref"],
-                                  ["--autotune-cache-dir", "x"]])
+                                  ["--autotune-cache-dir", "{tune}"]])
 def test_train_command_names_the_slice_of_a_later_flag(flag, tmp_path):
     """A pipeline-staged train plan (loaded, or reached by the phase
-    fallback) needs the 1F1B slice; the profiler's and the
-    dispatcher's flags name theirs."""
+    fallback) needs the 1F1B slice, and the command names it; the
+    profiler's and the dispatcher's flags, which named theirs until their
+    slice came, are taken: the command trains."""
     from repro_torch.launch import train
+    from repro_torch.profiling import DeviceProfile
     files = _staged_plans(tmp_path)
-    with pytest.raises(NotImplementedError, match="slice"):
-        train.main(TINY + [f.format(**files) for f in flag])
+    files["profile"] = str(DeviceProfile(device_kind="TestChip v0").save(
+        tmp_path / "d.json"))
+    files["tune"] = str(tmp_path / "tune")
+    argv = TINY + [f.format(**files) for f in flag]
+    if flag[0] == "--plan":
+        with pytest.raises(NotImplementedError, match="slice"):
+            train.main(argv)
+    else:
+        hist = train.main(argv + ["--ckpt-every", "0"])
+        assert [h["step"] for h in hist] == [0, 1, 2]
 
 
 @pytest.mark.parametrize("source", ["command", "searched-h100"])
