@@ -23,7 +23,11 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    length that is not a multiple of 128; at jamba-1.5-large's shapes
    (paged and dense decode q (8, 8, 8, 128), flash q (1, 64, 675, 128)
    against a 1024-token row, MoE scatter and gather at D 8192, E 16, K 2,
-   decode, chunk and prefill (S 700); the selective scan f32 / bf16 at
+   decode, chunk and prefill (S 700); at phi3.5-moe's (paged and dense
+   decode q (8, 8, 4, 128), flash q (1, 32, 675, 128) against 8 KV heads
+   of a 1024-token row, MoE scatter and gather at D 4096, E 16, K 2,
+   decode, chunk and prefill (S 700), each f32 / bf16); the selective
+   scan f32 / bf16 at
    the chunk shape (1, 256, 16384, N 16) and
    the decode shape (8, 1, 16384) with a carried state, a stall prefill
    (1, 675) with a state, the stateless forward (1, 512), N 8, each
@@ -101,7 +105,9 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    layer's cross-attention in 16 decode steps.  Then internvl2-76b at its published
    width in 2 layers: lockstep over 256 frontend embeddings + 256 text
    tokens at batch 4 (32 decode steps), then the engine's mode (a) on the
-   text prompts.
+   text prompts.  Then phi3.5-moe-42b-a6.6b at its published width cut
+   to 8 of its 32 layers (10.67 B parameters, 42.7 GB) in olmoe's modes
+   (a) and (c), held to the same gates.
 5. train: full-width, full-depth llama3.2-1b and rwkv6-1.6b, and
    olmoe-1b-7b at full width cut to ``OLMOE_TRAIN_DEPTH`` layers, in
    float32, batch 8 x 256 tokens, 4 AdamW steps each through
@@ -132,7 +138,13 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    times a step), and the serve command at the published size plain,
    ``--strategy searched --save-plan``, ``--plan`` on that file and
    ``--plan`` on the node plan (the paged decode launched, the tokens
-   equal).
+   equal).  Then ``plan-train-staged``: llama's train plan searched on
+   the node with 2 pipeline stages and 4 microbatches, saved, and the
+   train command for the same 2 steps under it (its 4 microbatches on
+   one card): the losses within the train tolerance of the plain run's, every
+   kernel launched 4 times the unstaged step's count; its step time and
+   peak memory beside the plain run's, and the plan's priced cost and
+   bubble for the 8-card mesh (context, not a check).
 7. profile: the device profile and the kernel dispatcher.  The profile
    command (``repro_torch.launch.profile``) at the smoke ladders: every
    ``cuda`` entry of its sweep must launch its kernel and the JSON load
@@ -1885,6 +1897,58 @@ def phase_serve_seamless(torch, device):
     return {"serve-seamless": counts}
 
 
+def phi35_one_card():
+    """phi3.5-moe-42b-a6.6b at its published width (d 4096, 32 heads over
+    8 KV heads of 128, 16 experts top 2 of d_ff 6400, vocab 32064), cut
+    in depth to one card by ``reduced_arch`` to 8 of its 32 layers: 10.67
+    B parameters, 42.7 GB in float32."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch.train import reduced_arch
+    return dataclasses.replace(
+        reduced_arch(configs.get("phi3.5-moe-42b-a6.6b"), 0, 8, 0),
+        name="phi3.5-moe-d8")
+
+
+# phi3.5-moe's serve modes: olmoe's (a) paged, chunked + prefix cache and
+# (c) dense, stall-the-world
+PHI35_MODES = {k: OLMOE_MODES[k] for k in ("a", "c")}
+
+
+def phase_serve_phi35(torch, device):
+    """Full-width phi3.5-moe-d8 (``phi35_one_card``) in float32, seeded
+    weights, on the llama phase's requests in modes (a) and (c) of
+    olmoe: (a) must launch the paged decode and both MoE kernels and hit
+    the prefix cache, (c) the dense decode, flash and both MoE kernels;
+    each gives finite logits and serves every request."""
+    from repro_torch.models import lm
+    arch = phi35_one_card()
+    t0 = time.perf_counter()
+    params = lm.init_lm(arch, torch.float32,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(SEED), device=device)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in lm.tree_leaves(params))
+    gb = torch.cuda.memory_allocated() / 1e9
+    print(f"# phi3.5 weights: {n_params / 1e9:.2f} B in "
+          f"{time.perf_counter() - t0:.1f} s, {gb:.1f} GB", flush=True)
+    emit({"phase": "serve-phi3.5-weights", "arch": arch.name,
+          "params": n_params, "memory_allocated_gb": gb})
+    moe = ["moe_scatter", "moe_gather"]
+    need = {"a": ["paged_decode_attention", *moe],
+            "c": ["decode_attention", "flash_attention", *moe]}
+    runs, counts = serve_modes(torch, params, arch,
+                               make_requests(arch.vocab), device,
+                               name="serve-phi3.5", modes=PHI35_MODES,
+                               need=need, profile=())
+    if runs["a"][0]["prefill_tokens_saved"] <= 0:
+        fail("serve-phi3.5-a: no prefix-cache hit")
+    del params, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def internvl2_one_card(depth: int):
     """internvl2-76b at its published width (d 8192, 64 heads over 8 KV
     heads of 128, d_ff 28672, vocab 128256), cut in depth by
@@ -2403,6 +2467,12 @@ PLAN_SERVE = ["--arch", "llama3.2-1b", "--width", "0", "--depth", "0",
               "--prompt-len", "96", "--gen", "8"]
 PLAN_TRAIN = ["--arch", "llama3.2-1b", "--steps", "2", "--ckpt-every", "0",
               "--log-every", "1"]
+# the staged train plan: llama3.2-1b on the 2 x 4 node, searched with two
+# pipeline stages and four microbatches
+STAGED_S, STAGED_M = 2, 4
+# the plan phase's train runs ({"plain": (history, step seconds, stdout),
+# "plan": ...}) and its node plan, which the staged phase compares with
+PLAN_RUNS: dict = {}
 
 
 def plan_search(arch_name: str, mesh_args) -> dict:
@@ -2458,38 +2528,21 @@ def plan_search(arch_name: str, mesh_args) -> dict:
 
 def _timed_train(torch, argv):
     """The train command's ``main(argv)`` with its stdout captured (and
-    echoed), each train step timed (the step wrapped in device syncs) and
-    the launch counts reset just before and read just after."""
+    echoed) and the launch counts reset just before and read just after;
+    returns (history, each logged step's seconds from its ``step_ms``,
+    stdout, counts)."""
     import io
     from repro_torch.kernels import ops
     from repro_torch.launch import train
-    real, times = train.make_train_step, []
-
-    def timed(*a, **k):
-        fn = real(*a, **k)
-
-        def step(*args):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            return out
-        return step
-
     buf = io.StringIO()
-    train.make_train_step = timed
     ops.reset_launch_counts()
-    try:
-        with contextlib.redirect_stdout(buf):
-            hist = train.main(argv)
-    finally:
-        train.make_train_step = real
+    with contextlib.redirect_stdout(buf):
+        hist = train.main(argv)
     counts = ops.launch_counts()
     print(buf.getvalue(), end="", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return hist, times, buf.getvalue(), counts
+    return hist, [h["step_ms"] / 1e3 for h in hist], buf.getvalue(), counts
 
 
 def _serve(torch, argv):
@@ -2565,6 +2618,7 @@ def phase_plan(torch, device):
         want = {k: 2 * n for k, n in train_launches(arch).items()}
         if any(c.get(k) != n for k, n in want.items()):
             fail(f"plan-train-{tag}: launches {c} (want {want})")
+    PLAN_RUNS.update(runs, node=back)
     (h0, t_plain, _), (h1, t_plan, out1) = runs["plain"], runs["plan"]
     l0, l1 = [h["loss"] for h in h0], [h["loss"] for h in h1]
     bitwise = l0 == l1
@@ -2620,6 +2674,100 @@ def phase_plan(torch, device):
     if not equal:
         fail(f"plan-serve: tokens differ between runs: {toks}")
     return counts
+
+
+def phase_plan_staged(torch, device):
+    """The pipeline-staged train step at llama3.2-1b's published
+    size: its train plan searched on the 2 x 4 node mesh with
+    ``STAGED_S`` stages and ``STAGED_M`` microbatches at the plan phase's
+    train shape, saved, and the train command run with ``--plan`` on it
+    for the plan phase's 2 steps.  One card has no mesh, so the plan
+    places nothing and the staged step runs on plain tensors: each
+    microbatch runs every unit, so every kernel launches ``STAGED_M``
+    times the unstaged step's count a step, and the losses are the
+    unstaged run's (``plan-train-plain``) up to float reassociation.  The
+    plan's price is for the 8-card mesh: context, not a check.  Then one
+    unstaged and one staged step under the profiler (``busy_share``):
+    device time, busy share and top kernels of each."""
+    from repro_torch import configs
+    from repro_torch.core import h100_mesh_spec
+    from repro_torch.plans import build_parallel_plan
+    arch = configs.get("llama3.2-1b")
+    t0 = time.perf_counter()
+    plan = build_parallel_plan(
+        arch, h100_mesh_spec(1, 2, 4), phases=("train",),
+        strategy="searched", train_seq=PLAN_SHAPES["train"]["seq_len"],
+        train_batch=PLAN_SHAPES["train"]["batch"], train_stages=STAGED_S,
+        train_microbatches=STAGED_M)
+    search_s = time.perf_counter() - t0
+    stages = plan.stage_for("train")
+    path = plan.save(OUT / "plan-llama3.2-1b-h100-2x4-staged.json")
+    if "plain" not in PLAN_RUNS:          # the plan phase failed early
+        hist, times, out, _ = _timed_train(torch, PLAN_TRAIN)
+        PLAN_RUNS["plain"] = (hist, times, out)
+    h0, t_plain, _ = PLAN_RUNS["plain"]
+    torch.cuda.reset_peak_memory_stats()
+    hist, times, out, c = _timed_train(torch, PLAN_TRAIN + ["--plan",
+                                                            str(path)])
+    peak = hist[-1]["max_memory_allocated_gb"][0] * 1e9
+    want = {k: 2 * STAGED_M * n for k, n in train_launches(arch).items()}
+    l0, l1 = [h["loss"] for h in h0], [h["loss"] for h in hist]
+    close = len(l0) == len(l1) == 2 and all(
+        abs(a - b) <= TRAIN_REF_TOL["metric"] * (1 + abs(b))
+        for a, b in zip(l1, l0))
+    logged = (f"train: pipeline S={STAGED_S} M={STAGED_M} "
+              f"boundaries={stages.boundaries}") in out
+    meta = plan.meta["phases"]["train"]
+    node = PLAN_RUNS.get("node")
+    emit({"phase": "plan-train-staged", "arch": arch.name,
+          "boundaries": list(stages.boundaries),
+          "microbatches": stages.microbatches, "search_s": search_s,
+          "loss_plain": l0, "loss_staged": l1, "losses_within_tol": close,
+          "tol": TRAIN_REF_TOL["metric"], "pipeline_logged": logged,
+          "step_ms_plain": [t * 1e3 for t in t_plain],
+          "step_ms_staged": [t * 1e3 for t in times],
+          "max_memory_allocated_gb": peak / 1e9,
+          "launches": c, "launches_want": want,
+          "pipeline_bubble_frac": meta["pipeline_bubble_frac"],
+          "priced_cost_ms": meta["cost_s"] * 1e3,
+          "priced_stage_costs_ms": [x * 1e3 for x in meta["stage_costs_s"]],
+          "priced_unstaged_cost_ms": (
+              node.meta["phases"]["train"]["cost_s"] * 1e3
+              if node is not None else None)})
+    if stages.num_stages != STAGED_S or stages.microbatches != STAGED_M:
+        fail(f"plan-train-staged: the search gave {stages.describe()}")
+    if any(c.get(k) != n for k, n in want.items()):
+        fail(f"plan-train-staged: launches {c} (want {want})")
+    if not close:
+        fail(f"plan-train-staged: losses {l1} staged, {l0} unstaged")
+    if not logged:
+        fail("plan-train-staged: the pipeline line was not logged")
+
+    # one step each way under the profiler, from the same weights and
+    # batch: the device's busy share and where the staged step's time goes
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.train import TrainConfig, make_train_step
+    params = init_model(torch, arch, device,
+                        torch.Generator(device=device).manual_seed(SEED))
+    batch = batches_for(torch, arch, PLAN_SHAPES["train"]["batch"],
+                        PLAN_SHAPES["train"]["seq_len"], 1, device)[0]
+    prof = {}
+    for tag, p in (("plain", None), ("staged", plan)):
+        step = make_train_step(arch, p, TrainConfig(
+            optimizer=AdamWConfig(**TRAIN_OPT), **TRAIN_CFG))
+        opt = adamw_init(params)
+        step(params, opt, batch)                      # warm
+        wall, busy, top, _, _ = busy_share(
+            torch, lambda: step(params, opt, batch))
+        prof[tag] = {"wall_ms": wall * 1e3, "device_busy_ms": busy * 1e3,
+                     "device_busy_share": busy / wall, "top_kernels": top}
+        del opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "plan-train-staged-profile", "arch": arch.name,
+          **prof})
+    del params
+    return {"plan-train-staged": c}
 
 
 # the profile phase: the small llama of the reference phase (hd 64), the
@@ -3157,6 +3305,27 @@ def main() -> int:
         ("moe-prefill700-jamba-bf16", lambda: phase_moe(
             torch, timer, device, "prefill700-jamba-bf16", torch.bfloat16,
             B=1, S=700, C=112, K=2, E=16, D=8192)),
+        # phi3.5-moe's serve shapes: 32 heads over 8 KV heads of 128 (G 4,
+        # G*D 512) in paged and dense decode and the dense prefill; its 16
+        # experts top 2 at d 4096 at the decode, chunk and prefill sizes
+        *((f"{tag}-phi3.5-{dn}", lambda fn=fn, dt=dt, tag=tag, dn=dn:
+           fn(f"{tag}-phi3.5-{dn}", dt))
+          for tag, fn in (
+              ("paged", lambda n, dt: phase_paged(
+                  torch, timer, device, n, dt, dt, KH=8, G=4, D=128)),
+              ("decode", lambda n, dt: phase_decode(
+                  torch, timer, device, n, dt, B=8, KH=8, G=4, D=128)),
+              ("flash", lambda n, dt: phase_flash(
+                  torch, timer, device, n, dt, S=675, T=1024, H=32, KH=8,
+                  D=128)))
+          for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))),
+        *((f"moe-{tag}-phi3.5-{dn}", lambda dt=dt, tag=tag, dn=dn, kw=kw:
+           phase_moe(torch, timer, device, f"{tag}-phi3.5-{dn}", dt, K=2,
+                     E=16, D=4096, **kw))
+          for tag, kw in (("decode", dict(B=8, S=1, C=8)),
+                          ("chunk", dict(B=1, S=256, C=40)),
+                          ("prefill700", dict(B=1, S=700, C=112)))
+          for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))),
         ("mamba-chunk-f32", lambda: phase_mamba(
             torch, timer, device, "mamba-chunk-f32", torch.float32, B=1,
             S=256)),
@@ -3228,8 +3397,10 @@ def main() -> int:
         ("serve-rwkv6", lambda: phase_serve_rwkv(torch, device)),
         ("serve-seamless", lambda: phase_serve_seamless(torch, device)),
         ("serve-internvl2", lambda: phase_serve_internvl2(torch, device)),
+        ("serve-phi3.5", lambda: phase_serve_phi35(torch, device)),
         ("train", lambda: phase_train(torch, device)),
         ("plan", lambda: phase_plan(torch, device)),
+        ("plan-train-staged", lambda: phase_plan_staged(torch, device)),
         ("profile", lambda: phase_profile(torch, device)),
         ("realize", lambda: phase_realize(torch, device)),
     ]
@@ -3250,8 +3421,8 @@ def main() -> int:
             seconds[name] = time.perf_counter() - t0
             print(f"# {name}: {seconds[name]:.1f} s", flush=True)
         if name in ("serve", "serve-olmoe", "serve-jamba", "serve-rwkv6",
-                    "serve-seamless", "serve-internvl2", "train", "plan",
-                    "profile"):
+                    "serve-seamless", "serve-internvl2", "serve-phi3.5",
+                    "train", "plan", "plan-train-staged", "profile"):
             counts.update(out)            # launch counts of the main path
         elif isinstance(out, list):
             kern.update((r["phase"], r) for r in out)

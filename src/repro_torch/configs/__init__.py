@@ -1,12 +1,11 @@
 """Architecture configs the port runs (``--arch <id>``).
 
-Copies of ``repro.configs``' four dense configs, of ``olmoe_1b_7b``
-(MoE), ``rwkv6_1b6`` (RWKV6), ``jamba_1_5_large`` (Mamba + attention +
-MoE), ``internvl2_76b`` (a VLM backbone behind a stubbed frontend) and
-``seamless_m4t_v2`` (encoder-decoder): each module defines ``ARCH`` (the
-published config) and ``reduced()`` (a small same-family config for CPU
-tests).  The one other id of the reference exists there and raises here,
-naming the ROADMAP slice that brings it.
+Copies of every config of ``repro.configs``: the four dense ones,
+``olmoe_1b_7b`` and ``phi3_5_moe_42b`` (MoE), ``rwkv6_1b6`` (RWKV6),
+``jamba_1_5_large`` (Mamba + attention + MoE), ``internvl2_76b`` (a VLM
+backbone behind a stubbed frontend) and ``seamless_m4t_v2``
+(encoder-decoder): each module defines ``ARCH`` (the published config)
+and ``reduced()`` (a small same-family config for CPU tests).
 """
 
 from __future__ import annotations
@@ -14,8 +13,8 @@ from __future__ import annotations
 import importlib
 
 ALL_ARCHS = ["llama3_2_1b", "olmo_1b", "qwen2_5_3b", "granite_3_2b",
-             "olmoe_1b_7b", "rwkv6_1b6", "jamba_1_5_large", "internvl2_76b",
-             "seamless_m4t_v2"]
+             "olmoe_1b_7b", "phi3_5_moe_42b", "rwkv6_1b6", "jamba_1_5_large",
+             "internvl2_76b", "seamless_m4t_v2"]
 
 # assignment ids -> module names (the reference's table)
 ALIASES = {
@@ -31,19 +30,9 @@ ALIASES = {
     "seamless-m4t-large-v2": "seamless_m4t_v2",
 }
 
-#: reference archs not ported yet -> the ROADMAP slice that brings them
-LATER = {
-    "phi3_5_moe_42b": "multi-GPU plans (its 42B parameters do not fit "
-                      "one card)",
-}
-
 
 def _module(name: str):
     key = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if key in LATER:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it arrives with "
-            f"{LATER[key]} (see ROADMAP.md)")
     if key not in ALL_ARCHS:
         raise ValueError(f"unknown arch {name!r}; the port runs "
                          f"{ALL_ARCHS}")

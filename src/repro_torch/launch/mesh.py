@@ -41,7 +41,8 @@ def init_distributed(device: torch.device) -> tuple[int, int]:
 
 def make_mesh(shape, axes, device_type: str = "cuda"):
     """A ``DeviceMesh`` of ``shape`` over the process group, dims named
-    ``axes`` (a subsequence of ``pod``, ``data``, ``model``)."""
+    ``axes`` (a subsequence of ``pod``, ``data``, ``model``, after a
+    pipeline plan's ``stage`` axis where it has one)."""
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, tuple(shape),
                             mesh_dim_names=tuple(axes))
@@ -53,11 +54,27 @@ def make_smoke_mesh(data: int = 1, model: int = 1,
     return make_mesh((data, model), ("data", "model"), device_type)
 
 
-def train_mesh(n_dev: int, device_type: str = "cuda"):
-    """(mesh, spec) for training: every device on ``data`` (the
-    reference's ``launch/train.py``: world x 1)."""
-    return (make_mesh((n_dev, 1), ("data", "model"), device_type),
-            h100_mesh_spec(1, n_dev, 1))
+def train_mesh_spec(n_dev: int):
+    """The cost model's train mesh, which the plan is searched for: every
+    device on ``data`` (the reference's ``launch/train.py``: world x 1;
+    a staged search factors its stages out of it itself)."""
+    return h100_mesh_spec(1, n_dev, 1)
+
+
+def train_mesh(n_dev: int, device_type: str = "cuda", stages=None):
+    """The train mesh: every device on ``data``, as
+    :func:`train_mesh_spec`.  A pipeline-staged plan's ``stages`` (a
+    ``StageAssignment``) factor the stage axis out of the devices where
+    its ``S`` divides them: ``(S, n_dev // S, 1)`` named
+    ``(stages.mesh_axis, "data", "model")``, over which the stack's unit
+    dim is split; otherwise there is no stage axis and the stack stays
+    replicated, as in the reference."""
+    if stages is not None and stages.num_stages > 1 \
+            and n_dev % stages.num_stages == 0:
+        S = stages.num_stages
+        return make_mesh((S, n_dev // S, 1),
+                         (stages.mesh_axis, "data", "model"), device_type)
+    return make_mesh((n_dev, 1), ("data", "model"), device_type)
 
 
 def serve_mesh(n_dev: int, device_type: str = "cuda"):

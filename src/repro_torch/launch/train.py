@@ -26,20 +26,22 @@ The plan flags are the reference's and go through the port's
 ``plans.resolve_plan``: ``--strategy`` builds a plan, ``--plan`` loads
 one (arch-checked; it beats ``--strategy``), ``--save-plan`` writes the
 plan either way, ``--pipeline-stages`` asks the searched train phase for
-pipeline stages.  One GPU has no mesh (``None``), on which every built
-plan degrades to uniform, and a loaded plan searched for a mesh says
-that it places nothing here (both logged, as the reference logs them);
-the train phase of the plan goes to ``make_train_step``, which refuses a
-pipeline-staged one, naming the 1F1B slice.
+pipeline stages (``--microbatches`` of them).  One GPU has no mesh
+(``None``), on which every built plan degrades to uniform, and a loaded
+plan searched for a mesh says that it places nothing here (both logged,
+as the reference logs them); the train phase of the plan goes to
+``make_train_step``, and a pipeline-staged one (logged as ``train:
+pipeline S= M= boundaries=``) runs its ``M`` microbatches.
 
 With ``WORLD_SIZE`` > 1 (``torchrun --nproc-per-node N``; ``gloo`` with
 ``--device cpu``, ``nccl`` on the cards) the command joins the process
-group, builds the reference's train mesh (every rank on ``data``,
-``launch/mesh.py::train_mesh``), searches or loads the plan for it, and
-realizes the train phase: params by ``param_pspecs``, the AdamW moments
-ZeRO-1 (``zero1_state_pspecs``), each batch by ``batch_pspecs``.  Only
-rank 0 prints, saves the plan and writes checkpoints (of the gathered
-tensors; a restore re-places them).
+group, searches or loads the plan for the reference's train mesh (every
+rank on ``data``), builds the mesh (``launch/mesh.py::train_mesh``: a
+staged plan's stage axis factored out first where it divides the
+ranks), and realizes the train phase: params by ``param_pspecs`` (the
+stack by stage), the AdamW moments ZeRO-1 (``zero1_state_pspecs``), each
+batch by ``batch_pspecs``.  Only rank 0 prints, saves the plan and
+writes checkpoints (of the gathered tensors; a restore re-places them).
 
 ``--kernel-backend {cuda,xla,ref}`` forces a kernel dispatch backend for
 every op of the step (a preference, ``kernels/dispatch.py``; with a plain
@@ -49,6 +51,11 @@ the run (``REPRO_AUTOTUNE_CACHE_DIR``), and ``--device-profile`` loads a
 measured :class:`~repro_torch.profiling.DeviceProfile`
 (``python -m repro_torch.launch.profile``) that calibrates the searched
 plan's cost model; the plan's meta then carries its fingerprint.
+
+``main`` returns the logged steps' metrics, which ``--metrics-out``
+writes as JSON.  On the card each record also holds ``step_ms`` (the
+step between device syncs) and ``max_memory_allocated_gb`` (every
+rank's peak so far).
 """
 
 from __future__ import annotations
@@ -70,7 +77,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.dispatch import BACKENDS, PLAIN, autotune_cache_at
 from repro_torch.kernels.mamba_scan import MAX_N as MAX_SCAN_N
-from repro_torch.launch.mesh import init_distributed, train_mesh
+from repro_torch.launch.mesh import (init_distributed, train_mesh,
+                                     train_mesh_spec)
 from repro_torch.models import init_params
 from repro_torch.models.arch import ShapeSpec
 from repro_torch.optim import AdamWConfig, adamw_init
@@ -212,6 +220,17 @@ def add_kernel_flags(ap: argparse.ArgumentParser) -> None:
                          "card instead of the analytic constants")
 
 
+def _peak_gb(world: int) -> list[float]:
+    """Each rank's ``max_memory_allocated`` so far, in GB (a collective
+    every rank joins when ``world`` > 1)."""
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if world == 1:
+        return [peak]
+    peaks = [None] * world
+    torch.distributed.all_gather_object(peaks, peak)
+    return peaks
+
+
 def main(argv=None) -> list[dict]:
     """Train; returns the logged metrics (one dict per logged step)."""
     args = parser().parse_args(argv)
@@ -232,19 +251,26 @@ def _train(args) -> list[dict]:
         args.strategy, args.strategy)
     # one device: no mesh, so a built plan degrades to uniform and a
     # loaded one places nothing (resolve_plan logs both)
-    mesh = mesh_spec = None
-    if world > 1:
-        mesh, mesh_spec = train_mesh(world, device.type)
-        log(f"mesh: data={world} model=1 ({world} ranks, "
-            f"{'nccl' if device.type == 'cuda' else 'gloo'})")
     pplan = resolve_plan(
-        arch, mesh_spec, phases=("train",), plan_path=args.plan,
+        arch, train_mesh_spec(world) if world > 1 else None,
+        phases=("train",), plan_path=args.plan,
         strategy=name, save_plan=args.save_plan if rank == 0 else "",
         train_seq=args.seq, train_batch=args.batch,
         train_stages=args.pipeline_stages,
         train_microbatches=args.microbatches,
         profile_path=args.device_profile, log=log)
-    staged = pplan.stage_for("train").num_stages > 1
+    stages = pplan.stage_for("train")
+    staged = stages.num_stages > 1
+    if staged:
+        log(f"train: pipeline S={stages.num_stages} "
+            f"M={stages.microbatches} boundaries={stages.boundaries}")
+    mesh = None
+    if world > 1:
+        mesh = train_mesh(world, device.type, stages)
+        dims = " ".join(f"{n}={k}" for n, k in zip(mesh.mesh_dim_names,
+                                                   mesh.mesh.shape))
+        log(f"mesh: {dims} ({world} ranks, "
+            f"{'nccl' if device.type == 'cuda' else 'gloo'})")
 
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=20,
                           total_steps=args.steps)
@@ -263,7 +289,8 @@ def _train(args) -> list[dict]:
         opt_state, place_batch = adamw_init(params), (lambda b: b)
     else:
         params, opt_state, place_batch = realize(
-            params, arch, pplan.plan_for("train"), mesh)
+            params, arch, pplan.plan_for("train"), mesh,
+            stages=stages if staged else None)
     start_step = 0
     if args.resume:
         like = {"params": params, "opt": opt_state}
@@ -274,14 +301,24 @@ def _train(args) -> list[dict]:
             log(f"resumed from step {step}")
 
     history = []
+    card = device.type == "cuda"
     t0 = time.time()
     for step in range(start_step, args.steps):
         batch = place_batch({k: torch.as_tensor(v, device=device)
                              for k, v in ds.batch_at(step).items()})
+        if card:
+            torch.cuda.synchronize()
+            t_step = time.perf_counter()
         with use_mesh(mesh):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if card:
+            torch.cuda.synchronize()
+            t_step = (time.perf_counter() - t_step) * 1e3
         if step % args.log_every == 0 or step == args.steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
+            if card:
+                m.update(step_ms=t_step,
+                         max_memory_allocated_gb=_peak_gb(world))
             dt = time.time() - t0
             tok_s = shape.tokens * (step - start_step + 1) / max(dt, 1e-9)
             log(f"step {step:5d} loss={m['loss']:.4f} "

@@ -1,5 +1,5 @@
-"""The train step: the counterpart of ``repro.train.step``'s unstaged
-``make_train_step``.
+"""The train step: the counterpart of ``repro.train.step``'s
+``make_train_step``, for unstaged and pipeline-staged plans.
 
 ``make_train_step`` returns ``(params, opt_state, batch) -> (params,
 opt_state, metrics)`` with:
@@ -24,6 +24,14 @@ moments ZeRO-1, ``optim.zero1_state_pspecs``): the model runs its
 activations per the plan's train phase, each gradient is brought to its
 parameter's placement (the data-parallel reduction), the f32
 accumulators follow, and the metrics come back as plain scalars.
+
+A plan whose train phase is pipeline-staged (``stage_for("train")
+.num_stages > 1``) runs this same step with ``M = stages.microbatches``
+microbatches.  The reference's staged step is one program that every
+rank runs whole, and its 1F1B order changes when each microbatch's
+gradient is taken, not what it sums to: microbatch accumulation gives
+the same update.  On a stage-factored mesh the ``stage`` axis shards
+only the stack's storage; each step gathers the stack once.
 """
 
 from __future__ import annotations
@@ -62,17 +70,6 @@ class TrainConfig:
     kernel_backend: str | None = None
 
 
-def _check_unstaged(plan) -> None:
-    """A ``ParallelPlan`` (anything with ``stage_for``) whose train phase
-    is pipeline-staged needs the 1F1B step, which the port lacks.  Any
-    other plan only places tensors."""
-    stage_for = getattr(plan, "stage_for", None)
-    if stage_for is not None and stage_for("train").num_stages > 1:
-        raise NotImplementedError(
-            "a pipeline-staged train step needs the 1F1B schedule, the next "
-            "slice of ROADMAP.md A7; the port trains unstaged")
-
-
 def _like_param(g, t):
     """The gradient on its parameter's placement (a partial sum over the
     data axes is all-reduced here)."""
@@ -81,12 +78,13 @@ def _like_param(g, t):
     return g
 
 
-def realize(params, arch: ArchConfig, plan, mesh):
+def realize(params, arch: ArchConfig, plan, mesh, *, stages=None):
     """The train state on ``mesh`` by ``plan`` (a ``ModelPlan``): params
-    by ``param_pspecs``, fresh AdamW state with ZeRO-1 moments over the
-    ``data`` axis; returns (params, opt_state, place_batch), the last
-    laying a batch out by ``batch_pspecs``."""
-    specs = param_pspecs(params, arch, plan)
+    by ``param_pspecs`` (with ``stages``, a pipeline ``StageAssignment``,
+    the stack's unit dim over the stage axis), fresh AdamW state with
+    ZeRO-1 moments over the ``data`` axis; returns (params, opt_state,
+    place_batch), the last laying a batch out by ``batch_pspecs``."""
+    specs = param_pspecs(params, arch, plan, stages=stages)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
     moments = to_shardings(zero1_state_pspecs(specs, params, ("data",),
                                               sizes), mesh, like=params)
@@ -100,16 +98,32 @@ def realize(params, arch: ArchConfig, plan, mesh):
 
 def make_train_step(arch: ArchConfig, plan=None,
                     cfg: TrainConfig | None = None):
-    """``plan``: a ``ParallelPlan`` (its train phase), a ``ModelPlan`` or
-    None (uniform).  On a realized plan the caller lays params, moments
-    and batch out on the mesh (:func:`realize`) and runs the step under
-    ``use_mesh``."""
+    """``plan``: a ``ParallelPlan`` (its train phase, pipeline-staged or
+    not), a ``ModelPlan`` or None (uniform).  On a realized plan the
+    caller lays params, moments and batch out on the mesh
+    (:func:`realize`) and runs the step under ``use_mesh``."""
     cfg = cfg or TrainConfig()
-    _check_unstaged(plan)
+    stages = None
+    stage_for = getattr(plan, "stage_for", None)     # a ParallelPlan
+    if stage_for is not None and stage_for("train").num_stages > 1:
+        stages = stage_for("train")
     plan = as_model_plan(plan, arch, "train")
     if cfg.microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {cfg.microbatches}")
     mod = model_module(arch)
+    m = cfg.microbatches
+    if stages is not None:
+        if mod is not lm:
+            raise ValueError(
+                f"pipeline-staged training supports decoder-only LMs only; "
+                f"{arch.name} maps to {mod.__name__} "
+                f"(token-level pipelining for other families is a "
+                f"follow-up)")
+        if stages.n_units != arch.n_units:
+            raise ValueError(
+                f"stage assignment covers {stages.n_units} units but "
+                f"{arch.name} has {arch.n_units}")
+        m = max(1, stages.microbatches)
     kw = dict(q_chunk=cfg.q_chunk, remat=cfg.remat, loss_chunk=cfg.loss_chunk)
     if mod is lm:       # the encoder-decoder remats every unit whole
         kw.update(time_chunk=cfg.time_chunk, aux_coef=cfg.aux_coef,
@@ -131,31 +145,69 @@ def make_train_step(arch: ArchConfig, plan=None,
             return _step(params, opt_state, batch)
 
     def _step(params, opt_state, batch):
-        m = cfg.microbatches
+        run = params
+        if stages is not None:          # the stack whole, once a step
+            run = dict(params, stack=lm.tree_map(_gather_stages,
+                                                 params["stack"]))
         if m == 1:
-            metrics, grads = value_and_grad(params, batch)
+            metrics, grads = value_and_grad(run, batch)
         else:
-            B = batch["tokens"].shape[0]
-            if B % m:
-                raise ValueError(f"batch {B} does not split into {m} "
-                                 f"microbatches")
-            n = B // m
             acc, mets = None, []
-            for i in range(m):
-                met, g = value_and_grad(
-                    params, {k: v[i * n:(i + 1) * n]
-                             for k, v in batch.items()})
+            for mb in _microbatches(batch, m):
+                met, g = value_and_grad(run, mb)
                 mets.append(met)
-                acc = ([x.float() for x in g] if acc is None
-                       else [a + x.float() for a, x in zip(acc, g)])
-            grads = [a / m for a in acc]
+                if acc is None:     # own copies: autograd may share one
+                    acc = [x.to(torch.float32, copy=True) for x in g]
+                else:               # in place: one accumulator alive
+                    for a, x in zip(acc, g):
+                        a.add_(x.float())
+                del g               # before the next microbatch's backward
+            grads = [a.div_(m) for a in acc]
             metrics = {k: torch.stack([d[k] for d in mets]).mean()
                        for k in mets[0]}
         it = iter(grads)
-        grads = lm.tree_map(lambda _: next(it), params)
+        grads = lm.tree_map(lambda t: _like_param(next(it), t), params)
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              cfg.optimizer)
         metrics.update(om)
         return params, opt_state, {k: whole(v) for k, v in metrics.items()}
 
     return train_step
+
+
+def _gather_stages(a):
+    """A stack leaf with its unit dim whole: a DTensor split over the
+    stage axis (``Shard(0)``) is gathered there, anything else is
+    returned as it is."""
+    if not is_dtensor(a):
+        return a
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+          for p in a.placements]
+    if pl == list(a.placements):
+        return a
+    return a.redistribute(a.device_mesh, pl)
+
+
+def _microbatches(batch: dict, m: int) -> list[dict]:
+    """``batch`` split into ``m`` microbatches of consecutive rows (the
+    reference's reshape to (m, B / m, ...)).  A DTensor is gathered once
+    and each microbatch laid out as the batch was."""
+    B = batch["tokens"].shape[0]
+    if B % m:
+        raise ValueError(f"global batch {B} not divisible by microbatches "
+                         f"{m}")
+    n = B // m
+
+    def split(v):
+        full = whole(v)
+        parts = [full[i * n:(i + 1) * n] for i in range(m)]
+        if not is_dtensor(v):
+            return parts
+        from torch.distributed.tensor import DTensor, Replicate
+        mesh, rep = v.device_mesh, [Replicate()] * v.device_mesh.ndim
+        return [DTensor.from_local(t, mesh, rep, run_check=False)
+                .redistribute(mesh, v.placements) for t in parts]
+
+    splits = {k: split(v) for k, v in batch.items()}
+    return [{k: parts[i] for k, parts in splits.items()} for i in range(m)]

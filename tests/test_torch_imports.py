@@ -39,6 +39,7 @@ MODULES = [
     "repro_torch.configs.internvl2_76b", "repro_torch.configs.jamba_1_5_large",
     "repro_torch.configs.seamless_m4t_v2",
     "repro_torch.configs.olmoe_1b_7b", "repro_torch.configs.rwkv6_1b6",
+    "repro_torch.configs.phi3_5_moe_42b",
     "repro_torch.core.config", "repro_torch.core.cost_model",
     "repro_torch.core.device", "repro_torch.core.elimination",
     "repro_torch.core.graph", "repro_torch.core.scan",

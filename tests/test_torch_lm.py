@@ -39,7 +39,8 @@ def _close(got, want, tol=TOL):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("name", ARCHS + ["internvl2_76b", "seamless_m4t_v2"])
+@pytest.mark.parametrize("name", ARCHS + ["internvl2_76b", "seamless_m4t_v2",
+                                  "phi3_5_moe_42b"])
 def test_configs_are_copies_of_the_reference(name):
     assert dataclasses.asdict(TC.get(name)) == dataclasses.asdict(C.get(name))
     assert (dataclasses.asdict(TC.reduced(name))
@@ -48,8 +49,9 @@ def test_configs_are_copies_of_the_reference(name):
 
 def test_other_archs_name_their_slice():
     TC.get("olmoe-1b-7b")                    # ported: MoE serving
-    with pytest.raises(NotImplementedError, match="multi-GPU plans"):
-        TC.get("phi3.5-moe-42b-a6.6b")
+    phi = TC.get("phi3.5-moe-42b-a6.6b")     # ported: every config loads
+    assert sorted(TC.ALL_ARCHS) == sorted(C.ALL_ARCHS)
+    assert (phi.n_experts, phi.top_k, phi.hd) == (16, 2, 128)
     rwkv = TC.reduced("rwkv6_1b6")           # served: slot-dense state
     got = params_to_numpy(lm.init_paged_cache(rwkv, 3, 4, 2, torch.float32,
                                               device="cpu"))

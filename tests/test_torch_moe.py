@@ -14,8 +14,9 @@ numpy inputs and the reference's weights (moved across by the bridge):
 * ``moe_ffn``'s output, aux loss and gradients; ``lm.forward`` and
   ``loss_fn`` on reduced olmoe;
 * ``ServeEngine`` token for token against the reference engine on one
-  seeded trace of reduced olmoe: paged + chunked (prefix cache on), dense
-  + chunked, dense stall-the-world.
+  seeded trace of reduced olmoe, and of reduced phi3.5-moe (the same MoE
+  code at other widths, with GQA): paged + chunked (prefix cache on),
+  dense + chunked, dense stall-the-world.
 
 Float32; tolerance 1e-5 on values, 1e-4 of a leaf's largest entry on
 gradients (sums in another order).
@@ -251,3 +252,11 @@ def test_engine_matches_reference_token_for_token(mode):
     assert eng.paged == (mode == "paged-chunked")
     if mode == "paged-chunked":
         assert eng.prefill_tokens_saved > 0            # prefix hits
+
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_phi3_5_engine_matches_reference_token_for_token(mode):
+    eng, got = engines_agree("phi3_5_moe_42b", mode, MODES)
+    assert eng.paged == (mode == "paged-chunked")
+    assert sum(len(t) for t in got.values()) > 0

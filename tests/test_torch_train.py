@@ -256,18 +256,30 @@ def test_microbatched_step_matches_jax(name):
         _params_close(got, want[k], float(jm["lr"]), k)
 
 
-def test_train_step_refuses_what_it_lacks():
+def test_train_step_runs_a_staged_plan_and_refuses_an_unknown_remat():
+    """A pipeline-staged plan runs, with the microbatched unstaged step's
+    metrics (``test_torch_staged.py`` holds it against the reference's
+    1F1B step); an unknown remat policy is refused."""
+    from repro_torch.core.stages import StageAssignment
+    from repro_torch.plans import ParallelPlan
     arch = TC.reduced("llama3_2_1b")
-
-    class Staged:
-        def stage_for(self, phase):
-            return type("S", (), {"num_stages": 2})()
-
-    with pytest.raises(NotImplementedError, match="1F1B"):
-        make_train_step(arch, Staged())
-    step = make_train_step(arch, None, TrainConfig(remat_policy="offload"))
+    base = ParallelPlan.uniform(arch, phases=("train",))
+    staged = ParallelPlan(arch=base.arch, phases=base.phases,
+                          stages={"train": StageAssignment((0, 1, 2), 2)})
     p = lm.init_lm(arch, generator=torch.Generator().manual_seed(0),
                    device="cpu")
+    tokens = {"tokens": torch.randint(0, arch.vocab, (4, 8),
+                                      generator=torch.Generator()
+                                      .manual_seed(1))}
+    mets = []
+    for plan, cfg in ((staged, TrainConfig()),
+                      (None, TrainConfig(microbatches=2))):
+        q = lm.tree_map(torch.clone, p)
+        mets.append(make_train_step(arch, plan, cfg)(q, adamw_init(q),
+                                                     tokens)[2])
+    for k in mets[1]:
+        _close(mets[0][k], mets[1][k], what=k)
+    step = make_train_step(arch, None, TrainConfig(remat_policy="offload"))
     with pytest.raises(ValueError, match="'dots', 'dots_batch', 'nothing'"):
         step(p, adamw_init(p), {"tokens": torch.zeros(2, 8, dtype=torch.int32)})
 
@@ -436,7 +448,8 @@ def _staged_plans(tmp_path) -> dict:
     arch = _tiny_arch()
     staged = build_parallel_plan(arch, h100_mesh_spec(1, 4, 2),
                                  phases=("train",), train_seq=16,
-                                 train_batch=2, train_stages=2)
+                                 train_batch=2, train_stages=2,
+                                 train_microbatches=2)
     assert staged.stage_for("train").num_stages == 2
     prefill = ParallelPlan(arch=arch_fingerprint(arch),
                            phases={"prefill": uniform_plan(arch)},
@@ -453,24 +466,31 @@ def _staged_plans(tmp_path) -> dict:
                                   ["--device-profile", "{profile}"],
                                   ["--kernel-backend", "ref"],
                                   ["--autotune-cache-dir", "{tune}"]])
-def test_train_command_names_the_slice_of_a_later_flag(flag, tmp_path):
-    """A pipeline-staged train plan (loaded, or reached by the phase
-    fallback) needs the 1F1B slice, and the command names it; the
-    profiler's and the dispatcher's flags, which named theirs until their
-    slice came, are taken: the command trains."""
+def test_train_command_trains_under_each_once_refused_flag(flag, tmp_path,
+                                                          capsys):
+    """Each flag that once named the slice still to come is taken now, and
+    the command trains: a pipeline-staged train plan (loaded, or reached
+    by the phase fallback) runs its microbatches, logs its pipeline and
+    gives the unstaged run's losses (its microbatches' mean: float
+    reassociation, 1e-5); the profiler's and the dispatcher's flags
+    train too."""
     from repro_torch.launch import train
     from repro_torch.profiling import DeviceProfile
     files = _staged_plans(tmp_path)
     files["profile"] = str(DeviceProfile(device_kind="TestChip v0").save(
         tmp_path / "d.json"))
     files["tune"] = str(tmp_path / "tune")
-    argv = TINY + [f.format(**files) for f in flag]
+    argv = TINY + [f.format(**files) for f in flag] + ["--ckpt-every", "0"]
+    hist = train.main(argv)
+    assert [h["step"] for h in hist] == [0, 1, 2]
     if flag[0] == "--plan":
-        with pytest.raises(NotImplementedError, match="slice"):
-            train.main(argv)
-    else:
-        hist = train.main(argv + ["--ckpt-every", "0"])
-        assert [h["step"] for h in hist] == [0, 1, 2]
+        m = 1 if "prefill" in flag[1] else 2
+        assert f"train: pipeline S=2 M={m} boundaries=(0, 1, 2)" in (
+            capsys.readouterr().out)
+        want = train.main(TINY + ["--ckpt-every", "0", "--strategy",
+                                  "uniform"])
+        for h, w in zip(hist, want):
+            _close(h["loss"], w["loss"], what=h["step"])
 
 
 @pytest.mark.parametrize("source", ["command", "searched-h100"])
