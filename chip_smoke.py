@@ -88,10 +88,10 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    the scan, the MoE kernels and its attention kernels, with the prefix
    cache requested in (a) and off (a recurrent stack); then its
    ``lm.forward`` at (1, 512), one scan launch per Mamba layer.  Then
-   full-width, full-depth rwkv6-1.6b in float32: (b) dense, chunked and
-   (c) dense, stall-the-world (first-token logits within 2e-3 of each
-   other), (b) in bfloat16, and (a)'s paged + prefix + int8 request,
-   which a stack without attention serves dense without either; its
+   full-width rwkv6-1.6b cut to 8 of 24 layers in float32: (b) dense,
+   chunked and (c) dense, stall-the-world (first-token logits within
+   2e-3 of each other), (b) in bfloat16, and (a)'s paged + prefix + int8
+   request, which a stack without attention serves dense without either; its
    carried-state WKV6 runs the plain version, so every run must launch
    no WKV6 kernel.  Each full-width run is profiled once more for the
    device's busy share, its top kernels and the MoE and scan kernels'
@@ -175,7 +175,18 @@ CUDA toolkit.  It imports nothing of JAX or of the reference package
    all eight kernel bodies, each on the shard-local path.  Step time,
    peak memory and inter-token latency both ways (the host's DTensor
    dispatch overhead).  Its launches are not added to the kernels line.
-9. the ``kernels`` JSON line, the card's name and power limit, and the
+9. dryrun: the dry run (``repro_torch.launch.dryrun``, in processes of
+   its own: its fake process group never meets this one's).  Every
+   kernel phase's call again on copies of its tensors without data: each
+   kernel's fake branch must report the work that phase bounded it by.
+   The ``train`` phase's one-card llama3.2-1b and olmoe-1b-7b-d8 runs
+   predicted: the peak within 10% of the measured one, the roofline's
+   lower bound at or below the measured step.  llama3.2-1b's
+   ``train_4k`` on the 256-GPU production mesh under the ``profile``
+   phase's device profile: its summary, its seconds and the per-layer
+   report.  Launch counters and ``memory_allocated`` unchanged across
+   the phase.
+10. the ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}``.
 
 Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -399,6 +410,25 @@ def bound(bytes_: float, flops: float, dtype: str, exps: float = 0.0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# the kernel phases' calls queued for the dryrun phase, on copies of their
+# tensors that hold no data: (phase, call, the work passed to bound())
+FAKE_CALLS: list = []
+
+
+def queue_fake(torch, phase: str, call, tensors, work) -> None:
+    """Queue ``call(*fakes)`` for the dryrun phase, ``fakes`` being
+    ``FakeTensor`` copies of ``tensors`` (shape, strides, dtype and device;
+    no data, nothing on the card), beside ``work`` (``kernels.work``'s
+    count, which the phase passes to :func:`bound`).  ``call`` may close
+    over the small real tensors a data-dependent count reads (kv_len, the
+    gates), never over the phase's large ones."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        fakes = [torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                     device=t.device) for t in tensors]
+    FAKE_CALLS.append((phase, lambda: call(*fakes), work))
+
+
 # --------------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------- #
@@ -439,7 +469,7 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
                 D=64):
     """The split-KV paged kernel against its plain version at the engine's
     decode shape; its time beside the slice-1 kernel's (PAGED_BEFORE_MS)."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     q, kp, vp, tables, kv_len, scales = paged_inputs(
         torch, device, KH=KH, G=G, D=D, pool_dtype=pool_dtype,
         q_dtype=q_dtype)
@@ -449,13 +479,15 @@ def phase_paged(torch, timer, device, name, pool_dtype, q_dtype, KH=8, G=4,
     torch.cuda.synchronize()
     dt = "bfloat16" if q_dtype == torch.bfloat16 else "float32"
     err = float((got.float() - want.float()).abs().max())
-    B, KH, G, D = q.shape
-    live = int(kv_len.sum())
-    kv_elem = kp.element_size()
-    bytes_ = (2 * q.numel() * q.element_size() + tables.numel() * 4
-              + kv_len.numel() * 4 + 2 * live * KH * D * kv_elem
-              + (2 * live * KH * 4 if scales else 0))
-    flops = 4 * live * KH * G * D
+    w = work.paged_decode_attention(q.shape, tables.shape[1],
+                                    int(kv_len.sum()), q.element_size(),
+                                    kp.element_size(), bool(scales))
+    bytes_, flops = w.bytes, w.flops
+    keys = list(scales)
+    queue_fake(torch, name, lambda q_, kp_, vp_, t_, *sc:
+               ops.paged_decode_attention(q_, kp_, vp_, t_, kv_len,
+                                          **dict(zip(keys, sc))),
+               [q, kp, vp, tables, *scales.values()], w)
     b_ms, b_by = bound(bytes_, flops, dt)
     res = {"phase": name, "shape": {"q": list(q.shape),
                                     "pool": list(kp.shape),
@@ -485,7 +517,7 @@ def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
     on a larger problem).  ``causal=False``: an encoder's self-attention,
     q (B, H, S, D) against all T keys (the flops 4 B H D S T)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     g = torch.Generator(device=device).manual_seed(SEED)
     q = torch.randn(B, H, S, D, generator=g, device=device).to(dtype)
     k = torch.randn(B, KH, T, D, generator=g, device=device).to(dtype)
@@ -501,10 +533,10 @@ def phase_flash(torch, timer, device, name, dtype, S=700, T=768, H=32, KH=8,
     dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
     err = float((got.float() - want.float()).abs().max())
     lib_err = float((lib.float() - want.float()).abs().max())
-    pairs = (sum(min(s + 1, T) for s in range(S)) if causal   # causal work
-             else S * T)
-    flops = 4 * B * H * D * pairs
-    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    w = work.flash_attention(q.shape, k.shape, causal, q.element_size())
+    bytes_, flops = w.bytes, w.flops
+    queue_fake(torch, name, lambda *a: ops.flash_attention(*a, causal=causal),
+               [q, k, v], w)
     b_ms, b_by = bound(bytes_, flops, dt)
     res = {"phase": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
            "causal": causal, "max_abs_err": err, "tol": TOL[dt],
@@ -530,7 +562,7 @@ def phase_flash_train(torch, timer, device, name="flash-train-f32"):
     """The llama3.2-1b train step's attention: q (8, 32, 256, 64) against
     k/v (8, 8, 256, 64), causal, float32."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     g = torch.Generator(device=device).manual_seed(SEED)
     q = torch.randn(8, 32, 256, 64, generator=g, device=device)
     k = torch.randn(8, 8, 256, 64, generator=g, device=device)
@@ -539,9 +571,10 @@ def phase_flash_train(torch, timer, device, name="flash-train-f32"):
     want = ref.attention_ref(q, k, v, causal=True)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    B, H, S, D = q.shape
-    flops = 4 * B * H * D * (S * (S + 1) // 2)
-    bytes_ = (2 * q.numel() + k.numel() + v.numel()) * 4
+    w = work.flash_attention(q.shape, k.shape, True, q.element_size())
+    bytes_, flops = w.bytes, w.flops
+    queue_fake(torch, name, lambda *a: ops.flash_attention(*a, causal=True),
+               [q, k, v], w)
     b_ms, b_by = bound(bytes_, flops, "float32")
     res = {"phase": name, "shape": {"q": list(q.shape), "kv": list(k.shape)},
            "max_abs_err": err, "tol": TOL["float32"],
@@ -575,7 +608,7 @@ def phase_wkv6(torch, timer, device, name, dtype):
     """The WKV6 kernel against its plain version at ``wkv_inputs``' shape
     (rwkv6-1.6b's train step); its time beside the kernel's before the
     staged redesign (``WKV_BEFORE_MS``) and its device time alone."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     r, k, v, w, u = wkv_inputs(torch, device, dtype)
     got = ops.wkv6(r, k, v, w, u)
     want = ref.wkv6_scan(r, k, v, w, u)
@@ -583,12 +616,9 @@ def phase_wkv6(torch, timer, device, name, dtype):
     dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
     scale = float(want.float().abs().max())
     err = float((got.float() - want.float()).abs().max())
-    B, H, T, N = r.shape
-    # per step: o = r.S + (r.(u*k)) v is 2 N^2 (+ O(N)); S <- w*S + k v^T
-    # is 3 N^2
-    flops = 5 * B * H * T * N * N
-    bytes_ = (4 * r.numel() * r.element_size() + w.numel() * 4
-              + u.numel() * 4)
+    wk = work.wkv6(r.shape, r.element_size())
+    bytes_, flops = wk.bytes, wk.flops
+    queue_fake(torch, name, lambda *a: ops.wkv6(*a), [r, k, v, w, u], wk)
     b_ms, b_by = bound(bytes_, flops, "float32")
     res = {"phase": name, "shape": list(r.shape), "max_abs_err": err,
            "max_abs_out": scale, "tol": WKV_TOL[dt] * scale,
@@ -616,7 +646,7 @@ def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
     depends on T alone, so a T-row cache takes the main path's split."""
     import numpy as np
     import torch.nn.functional as F
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     rng = np.random.default_rng(SEED)
     g = torch.Generator(device=device).manual_seed(SEED)
     q = torch.randn(B, KH, G, D, generator=g, device=device).to(dtype)
@@ -639,10 +669,10 @@ def phase_decode(torch, timer, device, name, dtype, *, B, KH, G, D,
     torch.cuda.synchronize()
     dt = "bfloat16" if dtype == torch.bfloat16 else "float32"
     err = float((got.float() - want.float()).abs().max())
-    live = int(kv_len.sum())
-    bytes_ = (2 * q.numel() * q.element_size() + kv_len.numel() * 4
-              + 2 * live * KH * D * kc.element_size())
-    flops = 4 * live * KH * G * D
+    w = work.decode_attention(q.shape, int(kv_len.sum()), q.element_size())
+    bytes_, flops = w.bytes, w.flops
+    queue_fake(torch, name, lambda *a: ops.decode_attention(*a, kv_len),
+               [q, k, v], w)
     b_ms, b_by = bound(bytes_, flops, dt)
     res = {"phase": name, "shape": {"q": list(q.shape), "cache": list(kc.shape),
                                     "kv_len": kv_len.tolist()},
@@ -697,7 +727,7 @@ def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
     distinct experts per token from random router scores, its slot
     assignment (the chunk shape drops assignments past capacity), the
     expert outputs random.  Returns the scatter's and the gather's rows."""
-    from repro_torch.kernels import moe_dispatch, ref
+    from repro_torch.kernels import moe_dispatch, ref, work
     g = torch.Generator(device=device).manual_seed(SEED)
     idx = torch.rand(B, S, E, generator=g, device=device).topk(K, -1)[1]
     lin, keep = ref.moe_positions(idx, E, C)
@@ -729,19 +759,25 @@ def phase_moe(torch, timer, device, name, dtype, *, B, S, C, K=8, E=64,
     torch.cuda.synchronize()
     shape = {"B": B, "S": S, "K": K, "E": E, "C": C, "D": D,
              "kept_assignments": kept, "assignments": B * S * K}
+    w_scatter = work.moe_scatter(x.shape, K, E * C, el)
+    w_gather = work.moe_gather(x.shape, K, live, el)
+    queue_fake(torch, f"moe-scatter-{name}",
+               lambda *a: moe_dispatch.moe_scatter_cuda(*a, E * C), [x, lin],
+               w_scatter)
+    queue_fake(torch, f"moe-gather-{name}",
+               lambda *a: moe_dispatch.moe_gather_cuda(*a, gates),
+               [out, lin], w_gather)
     results = []
-    for kind, err, kern, plain, lib, bytes_, flops, extra in (
+    for kind, err, kern, plain, lib, w, extra in (
             ("scatter", float((got - want).float().abs().max()),
              lambda: moe_dispatch.moe_scatter_cuda(x, lin, E * C),
-             lambda: ref.moe_scatter_ref(x, lin, E * C), library,
-             lin.numel() * 4 + x.numel() * el + B * (E * C + 1) * D * el, 0,
+             lambda: ref.moe_scatter_ref(x, lin, E * C), library, w_scatter,
              {"library_max_abs_err": lib_err}),
             ("gather", float((y - y_want).float().abs().max()),
              lambda: moe_dispatch.moe_gather_cuda(out, lin, gates),
              lambda: ref.moe_gather_ref(out, lin, gates), gather_lib,
-             lin.numel() * 4 + gates.numel() * 4 + live * D * el
-             + B * S * D * el, 2 * live * D,
-             {"library_max_abs_err": gather_lib_err})):
+             w_gather, {"library_max_abs_err": gather_lib_err})):
+        bytes_, flops = w.bytes, w.flops
         b_ms, b_by = bound(bytes_, flops, dt)
         res = {"phase": f"moe-{kind}-{name}", "shape": shape,
                "max_abs_err": err, "tol": 0.0 if kind == "scatter"
@@ -788,7 +824,7 @@ def phase_mamba(torch, timer, device, name, dtype, *, B, S, di=16384, N=16,
     y, and the final state when a state is carried; its time beside the
     kernel's before the Hopper redesign (``SCAN_BEFORE_MS``) and its device
     time alone."""
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, work
     dt_, Bm, Cm, x, A, D, h0 = mamba_inputs(torch, device, dtype, B=B, S=S,
                                             di=di, N=N, state=state)
     kw = dict(initial_state=h0, return_state=state)
@@ -806,14 +842,12 @@ def phase_mamba(torch, timer, device, name, dtype, *, B, S, di=16384, N=16,
         st = {"state_max_abs_err": float((got[1] - want[1]).abs().max()),
               "max_abs_state": hs, "state_tol": SCAN_TOL["float32"] * hs}
         ok &= st["state_max_abs_err"] <= st["state_tol"]
-    el = x.element_size()
-    steps = B * S * di
-    bytes_ = (el * (3 * steps + 2 * B * S * N) + 4 * (di * N + di)
-              + (2 * B * di * N * 4 if state else 0))
-    # per state and step: dt*A, (dt*x)*B, an FMA into h, an FMA into y;
-    # per channel and step: dt*x and the D*x FMA
-    flops = 6 * steps * N + 3 * steps
-    exps = steps * N
+    w = work.mamba_scan(B, S, di, N, x.element_size(), state_in=state,
+                        state_out=state)
+    bytes_, flops, exps = w.bytes, w.flops, w.exps
+    queue_fake(torch, name, lambda *a: ops.mamba_scan(
+        *a[:6], initial_state=a[6] if state else None, return_state=state),
+        [dt_, Bm, Cm, x, A, D] + ([h0] if state else []), w)
     b_ms, b_by = bound(bytes_, flops, "float32", exps)
     res = {"phase": name, "shape": {"B": B, "S": S, "di": di, "N": N,
                                     "state": state},
@@ -1673,19 +1707,25 @@ def stateful_wkv6_watch(log: dict, marker=None):
 
 
 def phase_serve_rwkv(torch, device):
-    """Full-width, full-depth rwkv6-1.6b (24 layers, d 2048, 32 heads of
-    64, d_ff 7168, vocab 65536; 1.6 B parameters) in float32, random
-    weights, on the llama phase's requests: (b) dense chunked and (c)
-    dense stall-the-world, (b) once more under the profiler with the
-    plain WKV6's calls bracketed; their first-token logits within
-    ``SERVE_LOGIT_TOL``; (b) in bfloat16 (the WKV state stays float32);
-    then (a)'s request (paged, prefix cache, int8), which the engine must
-    take as the dense layout without int8 or a prefix cache.  Each run is
-    held to finite logits and every request served, and records the plain
-    stateful WKV6's calls and its share of the run's wall time."""
+    """Full-width rwkv6-1.6b cut to 8 of its 24 layers (d 2048, 32 heads
+    of 64, d_ff 7168, vocab 65536; the plain carried-state WKV6 makes
+    the phase host-bound, so depth is what the smoke's time limit cuts
+    first) in float32, random weights, on the llama phase's requests:
+    (b) dense chunked and (c) dense stall-the-world, (b) once more under
+    the profiler with the plain WKV6's calls bracketed; their first-token
+    logits within ``SERVE_LOGIT_TOL``; (b) in bfloat16 (the WKV state
+    stays float32); then (a)'s request (paged, prefix cache, int8), which
+    the engine must take as the dense layout without int8 or a prefix
+    cache.  Each run is held to finite logits and every request served,
+    and records the plain stateful WKV6's calls and its share of the
+    run's wall time."""
+    import dataclasses
     from repro_torch import configs
+    from repro_torch.launch.train import reduced_arch
     from repro_torch.models import lm
-    arch = configs.get("rwkv6-1.6b")
+    arch = dataclasses.replace(
+        reduced_arch(configs.get("rwkv6-1.6b"), 0, 8, 0),
+        name="rwkv6-1.6b-d8")
     t0 = time.perf_counter()
     params = lm.init_lm(arch, torch.float32,
                         generator=torch.Generator(device=device)
@@ -3163,6 +3203,125 @@ def phase_realize(torch, device):
 
 
 # --------------------------------------------------------------------------- #
+# the dry run's predictions of the train phases' one-card runs: the
+# phase's record name -> the command's arch arguments (8 x 256, float32,
+# one card, as train_full runs them)
+DRYRUN_TRAIN = {"train-llama3.2-1b": ["--arch", "llama3.2-1b"],
+                f"train-olmoe-1b-7b-d{OLMOE_TRAIN_DEPTH}": [
+                    "--arch", "olmoe-1b-7b", "--depth",
+                    str(OLMOE_TRAIN_DEPTH)]}
+# a predicted peak within this share of the measured one
+DRYRUN_MEMORY_TOL = 0.10
+
+
+def _dryrun_cli(argv, timeout: int = 600) -> tuple[dict, str, float]:
+    """``python -m repro_torch.launch.dryrun`` in a process of its own (its
+    fake process group never meets this one's); returns (the cell's JSON,
+    its stdout, seconds)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                        *argv], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"dryrun {argv} exited {r.returncode}:\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    path = next(line.split("result: ", 1)[1] for line in r.stdout.splitlines()
+                if line.startswith("result: "))
+    return json.loads(Path(path).read_text()), r.stdout, seconds
+
+
+def phase_dryrun(torch, device):
+    """The dry run (``repro_torch.launch.dryrun``) against the card.
+
+    1. Every kernel phase's call again on copies of its tensors that hold
+       no data (``FAKE_CALLS``): each kernel's fake branch must report the
+       work that phase passed to ``bound()``.
+    2. The one-card train runs of the ``train`` phase predicted
+       (``DRYRUN_TRAIN``): the peak within ``DRYRUN_MEMORY_TOL`` of the
+       measured ``max_memory_allocated``, and the roofline's lower bound,
+       max(compute, memory), at or below the measured step.
+    3. llama3.2-1b's ``train_4k`` on the 256-GPU production mesh
+       (``--mesh single``, searched) under the ``profile`` phase's device
+       profile: its summary, its seconds, and the per-layer report (the
+       calibrated cost model against each layer's equivalent timed on
+       this card).
+    Across the phase every launch counter and ``memory_allocated`` must
+    stay as they were: the fake branches touch nothing on the card."""
+    from repro_torch.kernels import ops, work
+    launches0 = ops.launch_counts()
+    mem0 = torch.cuda.memory_allocated()
+    mismatched = []
+    for phase, call, want in FAKE_CALLS:
+        got = []
+        with work.recording(lambda n, w: got.append(w)):
+            call()
+        if got != [want]:
+            mismatched.append({"phase": phase, "want": str(want),
+                               "got": [str(w) for w in got]})
+    mem1 = torch.cuda.memory_allocated()
+    res = {"phase": "dryrun", "fake_calls": len(FAKE_CALLS),
+           "fake_work_mismatched": mismatched, "predictions": {}}
+    one_card = ["--shape", "train_4k", "--seq", "256", "--batch", "8",
+                "--mesh-shape", "1,1,1", "--dtype", "float32"]
+    for rec_name, argv in DRYRUN_TRAIN.items():
+        pred, _, sec = _dryrun_cli(argv + one_card)
+        meas = _phase_record(rec_name) or {}
+        rf = pred["roofline"]
+        got_gb = pred["hbm"]["per_device_total"] / 1e9
+        want_gb = meas.get("max_memory_allocated_gb")
+        bound_ms = max(rf["compute_s"], rf["memory_s"]) * 1e3
+        step_ms = meas.get("step_ms_after_first")
+        res["predictions"][rec_name] = {
+            "predicted_peak_gb": got_gb, "measured_peak_gb": want_gb,
+            "rel_error": (None if not want_gb
+                          else abs(got_gb - want_gb) / want_gb),
+            "roofline_bound_ms": bound_ms, "compute_ms": rf["compute_s"] * 1e3,
+            "memory_ms": rf["memory_s"] * 1e3, "dominant": rf["dominant"],
+            "measured_step_ms": step_ms, "kernels": pred["kernels"],
+            "seconds": sec}
+        print(f"dryrun {rec_name}: peak {got_gb:.2f} GB predicted, "
+              f"{want_gb} GB measured; bound {bound_ms:.1f} ms, step "
+              f"{step_ms} ms measured", flush=True)
+    profile = OUT / "profile-h100.json"
+    prod, out, sec = _dryrun_cli(
+        ["--arch", "llama3.2-1b", "--shape", "train_4k", "--mesh", "single",
+         "--strategy", "search", "--device-profile", str(profile)],
+        timeout=900)
+    summary = next(line for line in out.splitlines()
+                   if line.startswith("[OK]"))
+    print(summary, flush=True)
+    res["production"] = {
+        "cell": prod["cell"], "summary": summary, "seconds": sec,
+        "per_device_total_gb": prod["hbm"]["per_device_total"] / 1e9,
+        "fits_80GB": prod["hbm"]["fits_80GB"], "roofline": prod["roofline"],
+        "collective_bytes_per_axis": prod["collective_bytes_per_axis"],
+        "calibration": prod["calibration"]}
+    launches1 = ops.launch_counts()
+    mem2 = torch.cuda.memory_allocated()
+    res.update({"launches_unchanged": launches0 == launches1,
+                "memory_allocated_bytes": [mem0, mem1, mem2]})
+    emit(res)
+    if mismatched:
+        fail(f"dryrun: fake work differs from the kernel phases' "
+             f"{mismatched}")
+    if not (launches0 == launches1 and mem0 == mem1 == mem2):
+        fail(f"dryrun: the fake path touched the card (launches "
+             f"{launches0} -> {launches1}, memory {mem0}, {mem1}, {mem2})")
+    for name, p in res["predictions"].items():
+        if p["rel_error"] is None or p["rel_error"] > DRYRUN_MEMORY_TOL:
+            fail(f"dryrun {name}: predicted peak {p['predicted_peak_gb']} "
+                 f"GB, measured {p['measured_peak_gb']}")
+        if p["measured_step_ms"] is None or \
+                p["roofline_bound_ms"] > p["measured_step_ms"]:
+            fail(f"dryrun {name}: roofline bound {p['roofline_bound_ms']} "
+                 f"ms above the measured step {p['measured_step_ms']}")
+    if not prod["calibration"]:
+        fail("dryrun: no per-layer report")
+
+
 def main() -> int:
     try:
         import torch
@@ -3403,6 +3562,7 @@ def main() -> int:
         ("plan-train-staged", lambda: phase_plan_staged(torch, device)),
         ("profile", lambda: phase_profile(torch, device)),
         ("realize", lambda: phase_realize(torch, device)),
+        ("dryrun", lambda: phase_dryrun(torch, device)),
     ]
     counts, seconds = {}, {}
     for name, fn in steps:

@@ -51,6 +51,10 @@ POD_BW = 12.5e9      # the reference's inter-pod link
 #: dense bf16 tensor-core peak, FLOP/s (the datasheet's 1,979 TFLOP/s is
 #: with structured sparsity).
 H100_PEAK_FLOPS = 989e12
+#: float32 peak outside the tensor cores, FLOP/s: the port computes float32
+#: with TF32 off, so a float32 step's roofline divides by this one (the
+#: chip spec the cost model prices with keeps the bfloat16 peak).
+H100_PEAK_FLOPS_F32 = 67e12
 #: HBM3 bandwidth, bytes/s.
 H100_HBM_BW = 3.35e12
 #: HBM3 capacity, bytes.

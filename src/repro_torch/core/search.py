@@ -106,6 +106,19 @@ def config_space(graph: CompGraph, mesh: MeshSpec,
     return out
 
 
+def fsdp_stored(graph: CompGraph, mesh: MeshSpec,
+                strategy: Strategy) -> Strategy:
+    """``strategy`` with every layer of over 1 MB of parameters stored
+    FSDP-sharded over the mesh axes that replicate it (the baselines'
+    variant the memory-budget fallback adds to its candidates), with no
+    meta."""
+    return Strategy({
+        n: (c.with_fsdp()
+            if graph.nodes[n].param_bytes > 1e6
+            and c.replicating_axes(mesh) else c)
+        for n, c in strategy.assignment.items()})
+
+
 def find_strategy(graph: CompGraph, mesh: MeshSpec,
                   training: bool = True,
                   options: SearchOptions | None = None,
@@ -173,11 +186,7 @@ def find_strategy(graph: CompGraph, mesh: MeshSpec,
             for fn in BASELINES.values():
                 base = fn(graph, mesh)
                 candidates.append((base, mem_of(base)))
-                fsdp_base = Strategy({
-                    n: (c.with_fsdp()
-                        if graph.nodes[n].param_bytes > 1e6
-                        and c.replicating_axes(mesh) else c)
-                    for n, c in base.assignment.items()})
+                fsdp_base = fsdp_stored(graph, mesh, base)
                 candidates.append((fsdp_base, mem_of(fsdp_base)))
         # among feasible candidates pick the cheapest true objective;
         # if none fits, keep the smallest-memory one.

@@ -361,6 +361,106 @@ def run_local(fn, args, roles, out_roles, *, allowed=("batch", "heads"),
     return wrap(out, out_roles)
 
 
+def contract(x, w, k: int = 1):
+    """``x`` (..., *c) contracted with ``w`` (*c, *o) over the ``k`` dims
+    ``c``: ``x @ w`` for a 2-D ``w``, else ``torch.tensordot`` (a q
+    projection (d, H, hd) at ``k = 1``, an attention output (B, S, H, hd)
+    with its (H, hd, D) projection at ``k = 2``), one GEMM either way.
+    On DTensors the same product runs on the local shards, see
+    :func:`einsum`."""
+    def product(a, b):
+        return a @ b if k == 1 and b.ndim == 2 else torch.tensordot(a, b,
+                                                                    dims=k)
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return product(x, w)
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    lead, c = letters[:x.ndim - k], letters[x.ndim - k:x.ndim]
+    own = letters[x.ndim:x.ndim + w.ndim - k]
+    return _local_product(x, w, lead + c, c + own, lead + own, product)
+
+
+def einsum(spec: str, x, w):
+    """``torch.einsum(spec, x, w)`` of two operands whose every index
+    letter appears once in each (an expert FFN's ``"becd,edf->becf"``).
+
+    On DTensors the product runs on the local shards, with the placements
+    DTensor's own product would give, because DTensor's product flattens
+    dims into one, a view it cannot express when a dim is split over
+    several mesh dims, or a later one of the merged dims is split (torch
+    2.11 refuses it; 2.13 mislays the shards on the way back).  Per mesh
+    dim, with x's partial sums reduced first: a dim only x has, split on
+    x, stays split (w gathered there first); a dim both have, split on
+    x, is split alike on w, and the output is split on it (a batch dim)
+    or sums partially (``Partial``, a contracted one); split on w alone,
+    a batch dim is sliced alike on x, a contracted one is gathered (a
+    weight stored FSDP-split is used whole); a dim only w has, split on
+    w, splits the output's."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return torch.einsum(spec, x, w)
+    ins, out = spec.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    return _local_product(x, w, xs, ws, out,
+                          lambda a, b: torch.einsum(spec, a, b))
+
+
+def _local_product(x, w, xs: str, ws: str, os_: str, fn):
+    """``fn`` of x's and w's local shards, x / w / the output indexed by
+    the letters ``xs`` / ``ws`` / ``os_`` (see :func:`einsum`)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    n = mesh.ndim
+
+    def as_dt(t):
+        return t if is_dtensor(t) else DTensor.from_local(
+            t, mesh, [Replicate()] * n, run_check=False)
+
+    x, w = as_dt(x), as_dt(w)
+    px, pw = list(x.placements), list(w.placements)
+    out, gx, gw = [], [], []
+    for i in range(n):
+        a, b = px[i], pw[i]
+        if a.is_partial():
+            px[i] = a = Replicate()
+        if a.is_shard() and type(a) is not Shard and (
+                xs[a.dim] in ws or xs[a.dim] not in os_
+                or os_.index(xs[a.dim]) != a.dim):
+            px[i] = a = Replicate()          # a strided x: gathered
+        if b.is_shard() and type(b) is not Shard:
+            pw[i] = b = Replicate()          # a strided w: gathered
+        if a.is_shard():
+            letter = xs[a.dim]
+            if letter not in ws:             # only x has it
+                pw[i] = Replicate()
+                out.append(a if letter in os_ else Partial())
+                gx.append(a), gw.append(Partial())
+                continue
+            pw[i] = b = Shard(ws.index(letter))
+        elif b.is_shard() and ws[b.dim] in os_ and ws[b.dim] in xs:
+            px[i] = a = Shard(xs.index(ws[b.dim]))
+        elif b.is_shard() and ws[b.dim] in xs:
+            pw[i] = b = Replicate()          # FSDP: stored split, used whole
+        if b.is_shard():
+            letter = ws[b.dim]
+            split = (Shard(os_.index(letter)) if letter in os_
+                     else Partial())
+            out.append(split)
+            gx.append(a if letter in xs else Partial()), gw.append(b)
+        else:
+            out.append(Replicate()), gx.append(Replicate())
+            gw.append(Replicate())
+    if px != list(x.placements):
+        x = x.redistribute(mesh, px)
+    if pw != list(w.placements):
+        w = w.redistribute(mesh, pw)
+    y = fn(x.to_local(grad_placements=gx),
+           w.to_local(grad_placements=gw)).contiguous()
+    dims = {**dict(zip(xs, x.shape)), **dict(zip(ws, w.shape))}
+    shape = tuple(dims[c] for c in os_)
+    return DTensor.from_local(y, mesh, out, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
 def unflatten(t, dim: int, sizes):
     """``t.unflatten(dim, sizes)``; a DTensor split on ``dim`` by a degree
     that does not divide ``sizes[0]`` first drops mesh dims from that

@@ -2,7 +2,9 @@
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``.  With no
 GPU and no explicit ``cpu`` they raise: a silent CPU run would report CPU
-numbers under a device's name.
+numbers under a device's name.  ``meta`` (tensors without data, which
+stand for the card's in the dry run, ``launch/dryrun.py``) is taken on
+every host: nothing runs on it.
 
 TF32 is switched off for matmuls and cuDNN: the JAX reference computes in
 full float32, and TF32 keeps about three decimal digits.
@@ -26,7 +28,7 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     set_precision()
     return dev

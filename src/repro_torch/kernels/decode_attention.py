@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 
 #: launches since the last reset; the wrapper adds one where it launches
 launches = {"decode_attention": 0}
@@ -105,7 +105,7 @@ def decode_attention_cuda(q, k, v, kv_len, *, chunk: int | None = None,
     B, KH, G, D = q.shape
     T = k.shape[2]
     tensors = (q, k, v, kv_len)
-    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+    _require(all(work.on_card(t) and t.device == q.device for t in tensors),
              "q, k, v and kv_len must be on the same CUDA device")
     _require(q.ndim == 4 and k.ndim == 4 and v.shape == k.shape
              and tuple(k.shape[:2]) == (B, KH) and k.shape[3] == D,
@@ -124,6 +124,10 @@ def decode_attention_cuda(q, k, v, kv_len, *, chunk: int | None = None,
         chunk = split_plan(B, KH, T)[0]
     _require(chunk > 0 and chunk % _TILE == 0,
              f"chunk {chunk} must be a positive multiple of {_TILE}")
+    if work.is_fake(q):
+        work.report("decode_attention", work.decode_attention(
+            q.shape, work.live_rows(kv_len, B * T), q.element_size()))
+        return torch.empty_like(q)
     splits = -(-T // chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

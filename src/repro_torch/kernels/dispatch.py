@@ -211,10 +211,13 @@ def force_backend(backend: str | None):
 
 
 def call_platform(args) -> str:
-    """The platform of a call: the device type of its first tensor."""
+    """The platform of a call: the device type of its first tensor.  A
+    meta tensor stands for the card's (the dry run's tensors,
+    :mod:`repro_torch.launch.dryrun`), so its call goes to the kernel's
+    fake branch (:mod:`~repro_torch.kernels.work`)."""
     for a in args:
         if isinstance(a, torch.Tensor):
-            return a.device.type
+            return "cuda" if a.is_meta else a.device.type
     raise ValueError("a kernel op needs a tensor argument")
 
 
@@ -403,9 +406,10 @@ def _write_disk_cache(path: Path) -> None:
 
 
 def _is_concrete(args) -> bool:
-    """No fake tensor among ``args`` (as under tracing)."""
-    from torch._subclasses.fake_tensor import FakeTensor
-    return not any(isinstance(a, FakeTensor) for a in args)
+    """No tensor without data among ``args`` (a fake tensor, as under
+    tracing, or a meta tensor, as in the dry run)."""
+    from .work import is_fake
+    return not any(isinstance(a, torch.Tensor) and is_fake(a) for a in args)
 
 
 def _time_once(fn, *args, reps: int = 10) -> float:
@@ -426,12 +430,15 @@ def tuned_blocks(op: str, key: tuple, candidates: list[tuple],
     ``candidates`` are already valid; the first is the heuristic.  On CUDA
     tensors with autotuning enabled, each candidate is timed (after a
     warm-up call) by ``bench(*candidate)`` and the winner cached under
-    ``(op, key)``; anywhere else the heuristic is cached untimed (under
-    tracing it is returned uncached, so that a later call with real
-    tensors can still tune the same shape).  A ``bench`` launch counts no
-    launch."""
+    ``(op, key)``; anywhere else the heuristic is cached untimed.
+    Tensors without data (under tracing, or the dry run's) get the
+    heuristic and leave both caches as they were, so that a later call
+    with real tensors can still tune the same shape.  A ``bench`` launch
+    counts no launch."""
     if not candidates:
         raise ValueError(f"no valid tile candidates for {op} {key}")
+    if not _is_concrete(args):
+        return candidates[0]
     cache_key = (op,) + key
     persist = persist_enabled()
     with _TUNE_LOCK:
@@ -452,8 +459,6 @@ def tuned_blocks(op: str, key: tuple, candidates: list[tuple],
         pass                          # nothing to tune; cache the choice
     elif not (autotune_enabled() and on_card):
         pass                          # tuning can never run: cache heuristic
-    elif not _is_concrete(args):
-        return choice                 # tracing: usable now, tunable later
     else:
         timings = []
         for cand in candidates:

@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, ref, work
 
 #: launches since the last reset; the wrapper adds one where it launches
 launches = {"flash_attention": 0}
@@ -57,7 +57,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
     not take."""
     B, H, S, D = q.shape
     _, KH, T, _ = k.shape
-    _require(q.is_cuda and k.device == q.device and v.device == q.device,
+    _require(work.on_card(q) and k.device == q.device
+             and v.device == q.device,
              "q, k and v must be on the same CUDA device")
     _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
              "q, k and v must be contiguous")
@@ -67,6 +68,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True):
              f"shapes q {tuple(q.shape)} / k {tuple(k.shape)} disagree")
     _require(supports(q.shape, k.shape),
              f"head dim {D} (64 or 128), H % KH == 0, T >= S >= 1 ({T}, {S})")
+    if work.is_fake(q):
+        work.report("flash_attention", work.flash_attention(
+            q.shape, k.shape, causal, q.element_size()))
+        return torch.empty_like(q)
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
              "q, k and v must start on 16-byte boundaries (TMA, cp.async)")
     out = torch.empty_like(q)

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, ref, work
 
 #: launches since the last reset; the wrapper adds one where it launches
 launches = {"mamba_scan": 0}
@@ -47,7 +47,7 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def _state(t, name, shape, device):
-    _require(t.is_cuda and t.device == device,
+    _require(work.on_card(t) and t.device == device,
              f"{name} must be on the inputs' CUDA device")
     _require(t.dtype == torch.float32 and tuple(t.shape) == shape
              and t.is_contiguous(),
@@ -87,7 +87,7 @@ def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
     N = Bm.shape[-1]
     dev = x.device
     seq = (dt, Bm, Cm, x)
-    _require(all(t.is_cuda and t.device == dev for t in (*seq, A, D)),
+    _require(all(work.on_card(t) and t.device == dev for t in (*seq, A, D)),
              "dt, Bm, Cm, x, A and D must be on the same CUDA device")
     _require(x.dtype in _DTYPE and all(t.dtype == x.dtype for t in seq),
              f"dt/Bm/Cm/x dtypes {dt.dtype}/{Bm.dtype}/{Cm.dtype}/{x.dtype} "
@@ -109,6 +109,13 @@ def mamba_scan_cuda(dt, Bm, Cm, x, A, D, *, initial_state=None,
              f"({B}, {S}, {di}), B <= 65535")
     if initial_state is not None:
         _state(initial_state, "initial_state", (B, di, N), dev)
+    if work.is_fake(x):
+        work.report("mamba_scan", work.mamba_scan(
+            B, S, di, N, x.element_size(),
+            state_in=initial_state is not None, state_out=return_state))
+        y = x.new_empty(B, S, di)
+        return (y, x.new_empty(B, di, N, dtype=torch.float32)
+                ) if return_state else y
     hN = (torch.empty(B, di, N, dtype=torch.float32, device=dev)
           if return_state else None)
     y = torch.empty(B, S, di, dtype=x.dtype, device=dev)

@@ -39,7 +39,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, ref, work
 
 #: launches since the last reset; each wrapper adds one where it launches
 launches = {"moe_scatter": 0, "moe_gather": 0}
@@ -65,7 +65,8 @@ def _require(cond: bool, op: str, msg: str) -> None:
 
 
 def _check(op, tensors, dtype_of, lin, B, S):
-    _require(all(t.is_cuda and t.device == lin.device for t in tensors), op,
+    _require(all(work.on_card(t) and t.device == lin.device
+                 for t in tensors), op,
              "every tensor must be on the same CUDA device")
     _require(all(t.is_contiguous() for t in tensors), op,
              "every tensor must be contiguous")
@@ -82,8 +83,12 @@ def moe_scatter_cuda(x, lin, n_slots: int):
     buf (B, n_slots + 1, D) in x's dtype."""
     B, S, D = x.shape
     _check("moe_scatter", (x, lin), x, lin, B, S)
-    buf = torch.empty(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
     K = lin.shape[2]
+    if work.is_fake(x):
+        work.report("moe_scatter", work.moe_scatter(x.shape, K, n_slots,
+                                                    x.element_size()))
+        return x.new_empty(B, n_slots + 1, D)
+    buf = torch.empty(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
     slot_map = (torch.empty(B, n_slots, dtype=torch.int32, device=x.device)
                 if S * K >= SCATTER_MAP_MIN else None)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -105,6 +110,11 @@ def moe_gather_cuda(out, lin, gates):
     _require(tuple(gates.shape) == (B, S, K)
              and gates.dtype == torch.float32, "moe_gather",
              "gates must be (B, S, K) float32")
+    if work.is_fake(out):
+        work.report("moe_gather", work.moe_gather(
+            (B, S, D), K, work.live_gates(gates, B * S * K),
+            out.element_size()))
+        return out.new_empty(B, S, D)
     y = torch.empty(B, S, D, dtype=out.dtype, device=out.device)
     stream = torch.cuda.current_stream(out.device).cuda_stream
     err = _fn("moe_gather", 4)(lin.data_ptr(), out.data_ptr(),

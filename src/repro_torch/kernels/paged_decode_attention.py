@@ -22,7 +22,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, work
 from .decode_attention import split_plan, workspace
 
 #: launches of each kernel since the last reset; a wrapper adds one
@@ -72,12 +72,10 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
     tensors = [q, k_pool, v_pool, block_tables, kv_len]
     if quant:
         tensors += [k_scale, v_scale]
-    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+    _require(all(work.on_card(t) and t.device == q.device for t in tensors),
              "every tensor must be on the same CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
              "every tensor must be contiguous")
-    _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
-             "the pools must start on 16-byte boundaries (cp.async)")
     _require(q.ndim == 4 and (KHp, Dp) == (KH, D)
              and v_pool.shape == k_pool.shape,
              f"shapes q {tuple(q.shape)} / pools {tuple(k_pool.shape)} "
@@ -107,6 +105,15 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, block_tables, kv_len, *,
         chunk = split_plan(B, KH, pages * bs)[0]
     _require(chunk > 0 and chunk % 32 == 0,
              f"chunk {chunk} must be a positive multiple of 32")
+    if work.is_fake(q):
+        work.report("paged_decode_attention_int8" if quant
+                    else "paged_decode_attention",
+                    work.paged_decode_attention(
+                        q.shape, pages, work.live_rows(kv_len, B * pages * bs),
+                        q.element_size(), k_pool.element_size(), quant))
+        return torch.empty_like(q)
+    _require(k_pool.data_ptr() % 16 == 0 and v_pool.data_ptr() % 16 == 0,
+             "the pools must start on 16-byte boundaries (cp.async)")
     splits = -(-(pages * bs) // chunk)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.scan import remat_time_scan
-from repro_torch.core.sharding import run_local
+from repro_torch.core.sharding import einsum, run_local
 
 NEG_INF = -1e30
 
@@ -301,10 +301,10 @@ def expert_ffn(buf, wi, wg, wo, constrain=_no_constraint):
     """buf: (B, E, C, D) -> (B, E, C, D), each expert's SwiGLU FFN;
     ``constrain(tensor, dims)`` lays out its hidden and its output (see
     :func:`moe_scatter`)."""
-    h = torch.einsum("becd,edf->becf", buf, wi)
-    g = torch.einsum("becd,edf->becf", buf, wg)
+    h = einsum("becd,edf->becf", buf, wi)
+    g = einsum("becd,edf->becf", buf, wg)
     h = constrain(F.silu(g) * h, ("batch", "expert", None, "d_ff"))
-    out = torch.einsum("becf,efd->becd", h, wo)
+    out = einsum("becf,efd->becd", h, wo)
     return constrain(out, ("batch", "expert", None, "d_model"))
 
 
@@ -312,15 +312,18 @@ def moe_scatter_ref(x, lin, n_slots: int):
     """Plain version of the scatter kernel.  x: (B, S, D); lin: (B, S, K)
     flat slot indices (``n_slots`` is the trash slot) -> buf (B, n_slots + 1,
     D) in x's dtype: row ``lin[b, s, k]`` holds x[b, s]; every other row,
-    the trash row included, is zero.  Kept slots are unique."""
+    the trash row included, is zero.  Kept slots are unique.  Every
+    assignment is written, the dropped ones into the trash row, which is
+    then zeroed (so its gradient is zero): no shape depends on the data,
+    and the dry run can trace it."""
     B, S, D = x.shape
     K = lin.shape[-1]
     buf = torch.zeros(B, n_slots + 1, D, dtype=x.dtype, device=x.device)
     lin = lin.long().reshape(B, S * K)
-    keep = lin < n_slots
     b_idx = torch.arange(B, device=x.device)[:, None].expand(B, S * K)
     src = x[:, :, None, :].expand(B, S, K, D).reshape(B, S * K, D)
-    buf[b_idx[keep], lin[keep]] = src[keep]
+    buf[b_idx, lin] = src
+    buf[:, n_slots] = 0
     return buf
 
 

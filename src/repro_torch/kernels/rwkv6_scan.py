@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import build, ref
+from . import build, ref, work
 
 #: launches since the last reset; the wrapper adds one where it launches
 launches = {"wkv6": 0}
@@ -55,7 +55,7 @@ def wkv6_cuda(r, k, v, w, u):
     not take.  Returns out (B, H, T, N) in r's dtype."""
     B, H, T, N = r.shape
     tensors = (r, k, v, w, u)
-    _require(all(t.is_cuda and t.device == r.device for t in tensors),
+    _require(all(work.on_card(t) and t.device == r.device for t in tensors),
              "r, k, v, w and u must be on the same CUDA device")
     _require(all(t.is_contiguous() for t in tensors),
              "r, k, v, w and u must be contiguous")
@@ -71,6 +71,9 @@ def wkv6_cuda(r, k, v, w, u):
     _require(supports(r.shape),
              f"head size {N} (32 or 64) and a non-empty (B, H, T) "
              f"= ({B}, {H}, {T})")
+    if work.is_fake(r):
+        work.report("wkv6", work.wkv6(r.shape, r.element_size()))
+        return torch.empty_like(r)
     out = torch.empty_like(r)
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = _lib()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),

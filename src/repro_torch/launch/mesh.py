@@ -9,10 +9,19 @@ Nothing here touches the process group when imported; the commands call
 :func:`init_distributed` first.  Under ``torchrun`` (``WORLD_SIZE`` > 1)
 it joins the group through ``env://``, or through the URL in
 ``REPRO_TORCH_INIT_METHOD`` (``file:///...``, as the tests rendezvous).
+
+The production meshes (:func:`production_mesh_spec`) are the dry run's
+(:mod:`repro_torch.launch.dryrun`).  The reference's are 16 x 16 = 256
+and 2 x 16 x 16 = 512 TPU chips with every axis on ICI; an H100's NVLink
+domain is one node of 8 GPUs, so the port's keep the chip counts and put
+nodes on InfiniBand: 32 or 64 nodes of the ``(1, 2, 4)`` node mesh, the
+model axis inside NVLink.  :func:`make_production_mesh` lays one over
+torch's fake process group, as one rank of it sees it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -86,3 +95,35 @@ def serve_mesh(n_dev: int, device_type: str = "cuda"):
                    else (n_dev, 1))
     return (make_mesh((data, model), ("data", "model"), device_type),
             h100_mesh_spec(1, data, model))
+
+
+def production_mesh_spec(multi_pod: bool = False):
+    """The cost model's production mesh: ``(pod 32, data 2, model 4)``,
+    256 H100s, or 64 nodes, 512, with ``multi_pod``."""
+    return h100_mesh_spec(64 if multi_pod else 32, 2, 4)
+
+
+@contextlib.contextmanager
+def fake_mesh(spec, device_type: str = "cuda"):
+    """A ``DeviceMesh`` of ``spec``'s axes (a ``MeshSpec``) over torch's
+    fake process group, as its rank 0 sees it: collectives are shaped and
+    never sent.  The group is torn down on leaving, so that the process
+    can go on to a real one (gloo, nccl); one already in place raises."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialized; the "
+                           "fake one needs a process of its own")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=spec.num_devices)
+    try:
+        yield make_mesh(tuple(a.size for a in spec.axes), spec.axis_names,
+                        device_type)
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False, device_type: str = "cuda"):
+    """:func:`fake_mesh` of :func:`production_mesh_spec` (a context
+    manager yielding the mesh)."""
+    return fake_mesh(production_mesh_spec(multi_pod), device_type)

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.sharding import constrain
+from repro_torch.core.sharding import constrain, contract
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -67,7 +67,7 @@ def encode(params, frames, arch: ArchConfig, plan=None, *, remat=False):
     """frames: (B, S_enc, D) stubbed embeddings -> (B, S_enc, D) memory."""
     plan = lm.plan_or_uniform(plan, arch)
     w = params["enc_in"]["w"]
-    h = constrain(frames.to(w.dtype) @ w, plan.enc_embed, _BSD)
+    h = constrain(contract(frames.to(w.dtype), w), plan.enc_embed, _BSD)
     positions = torch.arange(h.shape[1], device=h.device)
     h, _, _ = lm.run_stack(h, params["enc_stack"], _enc_view(arch),
                            plan.enc_segments, positions=positions,

@@ -21,8 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import LayerConfig
-from repro_torch.core.sharding import (constrain, is_dtensor, run_local,
-                                       unflatten)
+from repro_torch.core.sharding import (constrain, contract, is_dtensor,
+                                       run_local, unflatten)
 from repro_torch.kernels import ops
 from repro_torch.kernels.quant import quantize_kv
 
@@ -111,8 +111,7 @@ def init_attention(arch, dtype, *, generator, device, lead=()):
 
 def _proj(x, w):
     """(B, S, d) x (d, H, hd) -> (B, S, H, hd)."""
-    d, H, hd = w.shape
-    return (x @ w.reshape(d, H * hd)).reshape(*x.shape[:-1], H, hd)
+    return contract(x, w)
 
 
 def _scatter_rows(pool, phys, rows):
@@ -335,10 +334,15 @@ def _attend(q, k, v, *, positions, causal, kv_cache, cache_pos,
             rows = torch.arange(B, device=q.device)
             ck[rows, cache_pos.long()] = k[:, 0].to(ck.dtype)
             cv[rows, cache_pos.long()] = v[:, 0].to(cv.dtype)
+        elif torch.is_tensor(cache_pos):
+            # one position for every row, read on the device (indexing by
+            # the 0-d tensor would read it on the host)
+            at = cache_pos.long().reshape(1)
+            ck.index_copy_(1, at, k[:, :1].to(ck.dtype))
+            cv.index_copy_(1, at, v[:, :1].to(cv.dtype))
         else:
-            cp = cache_pos.long() if torch.is_tensor(cache_pos) else cache_pos
-            ck[:, cp] = k[:, 0].to(ck.dtype)
-            cv[:, cp] = v[:, 0].to(cv.dtype)
+            ck[:, cache_pos] = k[:, 0].to(ck.dtype)
+            cv[:, cache_pos] = v[:, 0].to(cv.dtype)
         o = ops.decode_attention(unflatten(q[:, 0], 1, (KH, G)).contiguous(),
                                  ck.transpose(1, 2),
                                  cv.transpose(1, 2), positions[..., -1] + 1)
@@ -373,9 +377,7 @@ def _attend(q, k, v, *, positions, causal, kv_cache, cache_pos,
 def attention_out(p: dict, attn, cfg: LayerConfig = R):
     """o-proj: (B, S, H, hd) -> (B, S, d_model); ``cfg`` lays out
     (batch, seq, d_model)."""
-    H, hd, d = p["wo"].shape
-    y = attn.reshape(*attn.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
-    return constrain(y, cfg, _BSD)
+    return constrain(contract(attn, p["wo"], 2), cfg, _BSD)
 
 
 # --------------------------------------------------------------------------- #
@@ -392,10 +394,10 @@ def init_mlp(arch, dtype, *, generator, device, lead=()):
 
 
 def mlp(p: dict, x, cfg_in: LayerConfig = R, cfg_out: LayerConfig = R):
-    h = x @ p["wi"]
-    g = x @ p["wg"]
+    h = contract(x, p["wi"])
+    g = contract(x, p["wg"])
     h = constrain(F.silu(g) * h, cfg_in, ("batch", "seq", "d_ff"))
-    return constrain(h @ p["wo"], cfg_out, _BSD)
+    return constrain(contract(h, p["wo"]), cfg_out, _BSD)
 
 
 # --------------------------------------------------------------------------- #
@@ -427,4 +429,4 @@ def init_lm_head(arch, dtype, *, generator, device):
 
 def lm_head(p: dict, x, embed_p: dict, arch, cfg: LayerConfig = R):
     w = embed_p["table"].T if arch.tie_embeddings else p["w"]
-    return constrain(x @ w, cfg, ("batch", "seq", "vocab"))
+    return constrain(contract(x, w), cfg, ("batch", "seq", "vocab"))

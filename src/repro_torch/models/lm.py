@@ -51,7 +51,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     noop_context_fn)
 
 from repro_torch.core.config import LayerConfig
-from repro_torch.core.sharding import constrain, run_local
+from repro_torch.core.sharding import constrain, contract, run_local
 from repro_torch.device import resolve_device
 
 from . import layers as L
@@ -418,7 +418,7 @@ def _xent_sums(hc, lc, w, cfg=R):
     # the logits are laid out by the plan's lm_head config; on a realized
     # plan the per-token terms are then taken on each shard's tokens with
     # the vocab whole (DTensor's gather over a split vocab is unreliable)
-    lf = constrain(hc @ w, cfg, ("batch", "seq", "vocab"))
+    lf = constrain(contract(hc, w), cfg, ("batch", "seq", "vocab"))
     lf = constrain(lf, cfg, ("batch", "seq", None)).float()
     bs = ("batch", "seq")
     lse, gold, hit = run_local(_token_xent, [lf, lc], [bs + (None,), bs],

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import LayerConfig
-from repro_torch.core.sharding import constrain
+from repro_torch.core.sharding import constrain, contract
 from repro_torch.kernels import ops
 
 from .layers import dense_init
@@ -48,7 +48,7 @@ def route(p: dict, x, arch, cfg: LayerConfig = R):
     top-k gates are renormalised to sum to one (floor 1e-9).  On a
     realized plan the softmax and the top-k see every expert (the
     router's columns may be split over the expert axes)."""
-    logits = x.float() @ p["router"].float()
+    logits = contract(x.float(), p["router"].float())
     logits = constrain(logits, cfg, ("batch", "seq", None))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, arch.top_k, dim=-1)

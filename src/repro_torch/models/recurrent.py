@@ -34,8 +34,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.config import LayerConfig
-from repro_torch.core.sharding import (constrain, flatten_last2, is_dtensor,
-                                       unflatten)
+from repro_torch.core.sharding import (constrain, contract, flatten_last2,
+                                       is_dtensor, unflatten)
 from repro_torch.kernels import ops
 
 from .layers import dense_init
@@ -110,11 +110,12 @@ def rwkv_tmix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
     xr, xk, xv, xg, xw = (x + mu[i] * (sh - x) for i in range(5))
 
     heads = lambda t: unflatten(t, -1, (H, hs))
-    r = heads(xr @ p["wr"])
-    k = heads(xk @ p["wk"])
-    v = heads(xv @ p["wv"])
-    g = F.silu(xg @ p["wg"])
-    w_log = p["w0"] + torch.tanh(xw @ p["w_lora_a"]) @ p["w_lora_b"]
+    r = heads(contract(xr, p["wr"]))
+    k = heads(contract(xk, p["wk"]))
+    v = heads(contract(xv, p["wv"]))
+    g = F.silu(contract(xg, p["wg"]))
+    w_log = p["w0"] + contract(torch.tanh(contract(xw, p["w_lora_a"])),
+                               p["w_lora_b"])
     w = heads(torch.exp(-torch.exp(w_log.float())))
 
     if q_lens is not None:
@@ -141,7 +142,7 @@ def rwkv_tmix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
         of.var(-1, keepdim=True, correction=0) + 1e-5)
     o = (flatten_last2(of) * p["ln_x"].float()).to(x.dtype)
 
-    y = constrain((o * g) @ p["wo"], cfg, _BSD)
+    y = constrain(contract(o * g, p["wo"]), cfg, _BSD)
     return y, {"shift": _shift_state(x, prev, q_lens), "wkv": Sn}
 
 
@@ -167,10 +168,10 @@ def rwkv_cmix(p: dict, x, arch, state: dict | None = None, q_lens=None,
     mu = p["mu"]
     xk = x + mu[0] * (sh - x)
     xr = x + mu[1] * (sh - x)
-    k = torch.square(torch.relu(xk @ p["wk"]))
+    k = torch.square(torch.relu(contract(xk, p["wk"])))
     k = constrain(k, cfg, ("batch", "seq", "d_ff"))
-    v = k @ p["wv"]
-    y = constrain(torch.sigmoid(xr @ p["wr"]) * v, cfg, _BSD)
+    v = contract(k, p["wv"])
+    y = constrain(torch.sigmoid(contract(xr, p["wr"])) * v, cfg, _BSD)
     return y, {"shift": _shift_state(x, prev, q_lens)}
 
 
@@ -234,7 +235,7 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
     rank = p["dt_proj"].shape[-2]
     kw = p["conv_w"].shape[-2]
 
-    xz = x @ p["in_proj"]
+    xz = contract(x, p["in_proj"])
     x1, z = torch.split(xz, di, dim=-1)
     if is_dtensor(xz):
         x1, z = x1.contiguous(), z.contiguous()
@@ -253,11 +254,11 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
     # and seq first (the port's own points): a partial sum over a split
     # d_inner or rank carried into the next product asks torch 2.11's
     # DTensor for a redistribute from a shard to a partial it lacks
-    dbl = constrain(x1 @ p["x_proj"], cfg, ("batch", "seq", None))
+    dbl = constrain(contract(x1, p["x_proj"]), cfg, ("batch", "seq", None))
     dt, Bm, Cm = torch.split(dbl, [rank, N, N], dim=-1)
     if is_dtensor(dbl):     # DTensor's matmul backward views its operands
         dt, Bm, Cm = dt.contiguous(), Bm.contiguous(), Cm.contiguous()
-    dt = constrain(dt @ p["dt_proj"], cfg, _BSD)
+    dt = constrain(contract(dt, p["dt_proj"]), cfg, _BSD)
     dt = F.softplus(dt + p["dt_bias"])
     if q_lens is not None:
         valid = torch.arange(S, device=x.device)[None, :] < q_lens[:, None]
@@ -278,4 +279,4 @@ def mamba_mix(p: dict, x, arch, state: dict | None = None, chunk: int = 64,
                            chunk=chunk)
         new_state = {"conv": new_conv, "ssm": None}
     y = y * F.silu(z)
-    return constrain(y @ p["out_proj"], cfg, _BSD), new_state
+    return constrain(contract(y, p["out_proj"]), cfg, _BSD), new_state

@@ -82,11 +82,14 @@ def realize(params, arch: ArchConfig, plan, mesh, *, stages=None):
     """The train state on ``mesh`` by ``plan`` (a ``ModelPlan``): params
     by ``param_pspecs`` (with ``stages``, a pipeline ``StageAssignment``,
     the stack's unit dim over the stage axis), fresh AdamW state with
-    ZeRO-1 moments over the ``data`` axis; returns (params, opt_state,
-    place_batch), the last laying a batch out by ``batch_pspecs``."""
+    ZeRO-1 moments over the data axes (``pod`` and ``data``, those the
+    mesh has, as the reference's dry run lays them); returns (params,
+    opt_state, place_batch), the last laying a batch out by
+    ``batch_pspecs``."""
     specs = param_pspecs(params, arch, plan, stages=stages)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
-    moments = to_shardings(zero1_state_pspecs(specs, params, ("data",),
+    data_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    moments = to_shardings(zero1_state_pspecs(specs, params, data_axes,
                                               sizes), mesh, like=params)
     params = distribute(params, to_shardings(specs, mesh, like=params))
 

@@ -54,6 +54,8 @@ MODULES = [
     "repro_torch.kernels.dispatch",
     "repro_torch.kernels.ops", "repro_torch.kernels.paged_decode_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.rwkv6_scan",
+    "repro_torch.kernels.work", "repro_torch.launch.dryrun",
+    "repro_torch.launch.op_analysis",
     "repro_torch.launch.mesh", "repro_torch.launch.profile",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
