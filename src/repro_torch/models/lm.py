@@ -50,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
 
+from repro_torch import tracing
 from repro_torch.core.config import LayerConfig
 from repro_torch.core.sharding import constrain, contract, run_local
 from repro_torch.device import resolve_device
@@ -309,6 +310,13 @@ def remat_context(policy: str):
     return lambda: create_selective_checkpoint_contexts(keep)
 
 
+def _unit(h, unit_params, arch, memory, kw):
+    """:func:`unit_forward` inside span ``lm.unit``: the forward runs it
+    once a unit, and a remat recompute once more."""
+    with tracing.span("lm.unit"):
+        return unit_forward(h, unit_params, arch, memory=memory, **kw)
+
+
 def run_stack(h, stack_params, arch: ArchConfig, segments=(), *, positions,
               causal=True, cache=None, cache_pos=None, block_tables=None,
               q_lens=None, memory=None, time_chunk=64, remat=False,
@@ -339,12 +347,11 @@ def run_stack(h, stack_params, arch: ArchConfig, segments=(), *, positions,
             # ``kw`` (and each inner remat's config) is bound when the
             # lambda is made: the recompute runs after the loop moved on
             h, a = checkpoint(
-                lambda h_, p_, m_, kw=kw: unit_forward(h_, p_, arch,
-                                                       memory=m_, **kw)[:2],
+                lambda h_, p_, m_, kw=kw: _unit(h_, p_, arch, m_, kw)[:2],
                 h, unit_params, memory, use_reentrant=False,
                 preserve_rng_state=False, context_fn=context_fn)
         else:
-            h, a, _ = unit_forward(h, unit_params, arch, memory=memory, **kw)
+            h, a, _ = _unit(h, unit_params, arch, memory, kw)
         aux = aux + a
     return h, aux, cache
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.config import LayerConfig
 from repro_torch.core.sharding import constrain, contract
 from repro_torch.kernels import ops
@@ -63,15 +64,22 @@ def moe_ffn(p: dict, x, arch, cfg: LayerConfig = R):
     frac_probs_e / K``.  ``cfg`` (the plan's ``moe`` config) may shard
     batch/seq, expert (expert parallelism) and d_ff; the dispatch applies
     it through its ``constrain`` callback."""
-    S = x.shape[1]
-    E, K = arch.n_experts, arch.top_k
-    gate_vals, expert_idx, probs = route(p, x, arch, cfg)
-    y = ops.moe_dispatch_combine(
-        x, gate_vals, expert_idx, p["wi"], p["wg"], p["wo"],
-        capacity=capacity(S, arch),
-        constrain=lambda a, dims: constrain(a, cfg, dims))
-    onehot = F.one_hot(expert_idx, E).sum(2).float()          # (B, S, E)
-    frac_tokens = onehot.mean(dim=(0, 1))
-    frac_probs = probs.mean(dim=(0, 1))
-    aux = E * torch.sum(frac_tokens * frac_probs) / K
+    B, S = x.shape[:2]
+    E, K, C = arch.n_experts, arch.top_k, capacity(S, arch)
+    with tracing.span("moe.ffn"):
+        gate_vals, expert_idx, probs = route(p, x, arch, cfg)
+        y = ops.moe_dispatch_combine(
+            x, gate_vals, expert_idx, p["wi"], p["wg"], p["wo"], capacity=C,
+            constrain=lambda a, dims: constrain(a, cfg, dims))
+        onehot = F.one_hot(expert_idx, E).sum(2).float()      # (B, S, E)
+        if tracing.counting():
+            # the batch's assignments, those a row's capacity keeps (at
+            # most C an expert) and its capacity slots
+            tracing.count("moe.assignments", B * S * K)
+            tracing.count("moe.kept", onehot.sum(1).clamp(max=C)
+                          .sum(dtype=torch.int64))
+            tracing.count("moe.slots", B * E * C)
+        frac_tokens = onehot.mean(dim=(0, 1))
+        frac_probs = probs.mean(dim=(0, 1))
+        aux = E * torch.sum(frac_tokens * frac_probs) / K
     return y, aux

@@ -40,6 +40,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sharding import is_dtensor, whole
 from repro_torch.kernels import dispatch as kernel_dispatch
 from repro_torch.models import lm, model_module
@@ -136,15 +137,18 @@ def make_train_step(arch: ArchConfig, plan=None,
         """(metrics, gradient leaves in ``lm.tree_leaves`` order)."""
         tree = lm.tree_map(lambda t: t.detach().requires_grad_(), params)
         leaves = [t for _, t in lm.tree_leaves(tree)]
-        loss, metrics = mod.loss_fn(tree, batch, arch, plan, **kw)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a leaf the loss does not reach gets zeros, as under jax.grad
-        grads = [torch.zeros_like(t) if g is None else _like_param(g, t)
-                 for t, g in zip(leaves, grads)]
+        with tracing.span("train.forward"):
+            loss, metrics = mod.loss_fn(tree, batch, arch, plan, **kw)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the loss does not reach gets zeros, as under jax.grad
+            grads = [torch.zeros_like(t) if g is None else _like_param(g, t)
+                     for t, g in zip(leaves, grads)]
         return {k: v.detach() for k, v in metrics.items()}, grads
 
     def train_step(params, opt_state, batch):
-        with kernel_dispatch.force_backend(cfg.kernel_backend):
+        with tracing.span("train.step"), \
+                kernel_dispatch.force_backend(cfg.kernel_backend):
             return _step(params, opt_state, batch)
 
     def _step(params, opt_state, batch):
@@ -170,8 +174,9 @@ def make_train_step(arch: ArchConfig, plan=None,
                        for k in mets[0]}
         it = iter(grads)
         grads = lm.tree_map(lambda t: _like_param(next(it), t), params)
-        params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             cfg.optimizer)
+        with tracing.span("train.optimizer"):
+            params, opt_state, om = adamw_update(params, grads, opt_state,
+                                                 cfg.optimizer)
         metrics.update(om)
         return params, opt_state, {k: whole(v) for k, v in metrics.items()}
 

@@ -68,7 +68,7 @@ MODULES = [
     "repro_torch.profiling", "repro_torch.profiling.calibration",
     "repro_torch.profiling.microbench", "repro_torch.profiling.profile",
     "repro_torch.serve.engine",
-    "repro_torch.serve.fns", "repro_torch.train.step",
+    "repro_torch.serve.fns", "repro_torch.tracing", "repro_torch.train.step",
 ]
 
 
